@@ -1,0 +1,17 @@
+"""granite-3-2b [dense] — GQA kv=8.  [hf:ibm-granite/granite-3.0-2b-base; hf]
+40L d_model=2048 32H (kv=8) d_ff=8192 vocab=49155.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    num_layers=40,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    tie_embeddings=True,
+)
