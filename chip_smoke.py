@@ -13,11 +13,14 @@ failure ends the run with a non-zero exit code and no result line:
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights), and finite, well-shaped outputs of every stage
               model at the published widths.
-4. serve    — one isolated W2 query, then a ``--serve --spec-decode`` run of
-              two staggered queries, through ``repro_torch.launch.serve`` at
-              the published qwen3 / qwen1.5-0.5b widths in bf16.  Each run
+4. serve    — one isolated W2 query with straggler re-dispatch off (every
+              stage runs once, so its launch counts are the query's own),
+              then a ``--serve --spec-decode`` run of two staggered queries
+              with it on, through ``repro_torch.launch.serve`` at the
+              published qwen3 / qwen1.5-0.5b widths in bf16.  Each run
               starts with every launch counter at 0 and must finish every
-              DAG node with no stage fn retried and all three kernels launched.
+              DAG node with no stage fn retried, no exception in any attempt
+              (a cancelled straggler's included) and every kernel launched.
 5. timing   — each kernel, its plain version and the yardstick replayed at
               every shape the isolated W2 query gave it, weighted by launches.
 
@@ -46,14 +49,6 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor cores
               torch.float32: 67e12}           # f32 outside the tensor cores
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
-KERNELS = {   # name -> (source, the TPU kernel it replaces)
-    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                         "src/repro/kernels/decode_attention.py:25"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:26"),
-    "topk_retrieval": ("src/repro_torch/kernels/csrc/topk_retrieval.cu",
-                       "src/repro/kernels/topk_retrieval.py:22"),
-}
 
 
 def say(*a):
@@ -75,13 +70,17 @@ def _spin_rate():
     return _CYCLES_PER_MS[0]
 
 
-def _event_ms(fn, reps):
+def _issue(fn, reps):
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for s, e in ev:
         s.record()
         fn()
         e.record()
+    return ev
+
+
+def _median_ms(ev):
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
@@ -89,19 +88,35 @@ def _event_ms(fn, reps):
 def timed(fn, reps=15, warmup=3):
     """-> (device_ms, host_ms), medians over ``reps`` calls (CUDA events).
 
-    device_ms: the calls are queued behind a spin kernel long enough to
-    cover their issue, so the card runs them back to back and the events
-    time the card's work alone.  host_ms: each call issued to an idle card,
-    as a caller sees it, the wrapper's host work (Python, ctypes,
-    allocation) included."""
+    device_ms: the calls are queued behind a spin kernel that outlasts
+    their issue, so the card runs them back to back and the events time
+    the card's work alone.  The spin counts clock cycles, so its length in
+    ms moves with the clock; it is timed too, and if the host took longer
+    to issue the calls than the spin lasted, the run is repeated behind a
+    longer spin.  host_ms: each call issued to an idle card, as a caller
+    sees it, the wrapper's host work (Python, ctypes, allocation)
+    included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    host = _event_ms(fn, reps)
-    issue_ms = (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda._sleep(int(_spin_rate() * (3 * reps * issue_ms + 1)))
-    return _event_ms(fn, reps), host
+    host = _median_ms(_issue(fn, reps))
+    cycles = _spin_rate() * (3 * (time.perf_counter() - t0) * 1e3 + 1)
+    for _ in range(4):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        torch.cuda._sleep(int(cycles))
+        e.record()
+        t0 = time.perf_counter()
+        ev = _issue(fn, reps)
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        dev = _median_ms(ev)
+        spin_ms = s.elapsed_time(e)
+        if issue_ms < spin_ms:
+            return dev, host
+        cycles *= 3 * issue_ms / spin_ms
+    raise RuntimeError(f"the host took {issue_ms:.1f} ms to issue {reps} "
+                       f"calls, longer than every spin ({spin_ms:.1f} ms)")
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -238,9 +253,9 @@ def fmt(t):
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     t0 = time.monotonic()
-    took = _build.build()
+    took = _build.build(k.name for k in ops.KERNELS)
     say(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s "
         f"(nvcc {_build.nvcc()})")
 
@@ -372,36 +387,43 @@ def phase_models():
         f"each; {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
 
 
+def _k1_key(q, kc, vc, lengths):
+    b, h, e = q.shape
+    return (b, h, kc.shape[2], kc.shape[1], e, q.dtype)
+
+
+def _k2_key(q, k, v, *, causal=True, q_offset=0, kv_len=None):
+    b, sq, h, e = q.shape
+    return (b, sq, h, k.shape[1], k.shape[2], e, q.dtype, causal, q_offset,
+            kv_len)
+
+
+def _k3_key(queries, corpus, k):
+    return (queries.shape[0], corpus.shape[0], queries.shape[1], k)
+
+
+# per kernel of repro_torch.kernels.ops.KERNELS: the shape key of one
+# wrapper call, and the case that replays a key on fresh random inputs
+REPLAY = {
+    "decode_attention": (_k1_key, lambda key, g: decode_case(*key, g)),
+    "flash_attention": (_k2_key, lambda key, g: flash_case(*key[:7], g,
+                                                           *key[7:])),
+    "topk_retrieval": (_k3_key, lambda key, g: topk_case(*key, g)),
+}
+
+
 class ShapeLog:
     """Counts the shapes each kernel wrapper is called with while the main
     path runs (it wraps the module functions; the launch counters stay the
     wrappers' own)."""
 
     def __init__(self):
-        from repro_torch.kernels import decode_attention as k1
-        from repro_torch.kernels import flash_attention as k2
-        from repro_torch.kernels import topk_retrieval as k3
+        from repro_torch.kernels import ops
         self.lock = threading.Lock()
         self.seen = collections.defaultdict(collections.Counter)
-        self.mods = {"decode_attention": (k1, self._k1),
-                     "flash_attention": (k2, self._k2),
-                     "topk_retrieval": (k3, self._k3)}
+        self.mods = {k.name: (k.module, REPLAY[k.name][0])
+                     for k in ops.KERNELS}
         self.orig = {}
-
-    @staticmethod
-    def _k1(q, kc, vc, lengths):
-        b, h, e = q.shape
-        return (b, h, kc.shape[2], kc.shape[1], e, q.dtype)
-
-    @staticmethod
-    def _k2(q, k, v, *, causal=True, q_offset=0, kv_len=None):
-        b, sq, h, e = q.shape
-        return (b, sq, h, k.shape[1], k.shape[2], e, q.dtype, causal,
-                q_offset, kv_len)
-
-    @staticmethod
-    def _k3(queries, corpus, k):
-        return (queries.shape[0], corpus.shape[0], queries.shape[1], k)
 
     def __enter__(self):
         for name, (mod, key) in self.mods.items():
@@ -430,7 +452,8 @@ def phase_serve(label, argv):
     run = rep.session.last_run
     summary = dict(wall_s=rep.wall_s, tokens=rep.tokens,
                    tokens_per_s=rep.tokens / rep.wall_s, nodes=rep.nodes,
-                   retries=rep.retries, stragglers=rep.stragglers,
+                   retries=rep.retries, stage_errors=rep.stage_errors,
+                   stragglers=rep.stragglers,
                    decode_rounds=sum(r.decode_rounds for r in rep.results),
                    spec_rounds=run.spec_rounds, launches=counts,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -438,6 +461,9 @@ def phase_serve(label, argv):
     say(f"[serve:{label}] {json.dumps(summary)}")
     assert rep.unfinished == [], f"unfinished nodes: {rep.unfinished[:5]}"
     assert rep.retries == 0, f"{rep.retries} stage fns were retried"
+    # every attempt, a cancelled straggler's too, whose error the runtime
+    # drops unread
+    assert rep.stage_errors == 0, f"{rep.stage_errors} stage fns raised"
     assert all(v > 0 for v in counts.values()), f"kernel not run: {counts}"
     assert rep.tokens > 0
     del rep, run
@@ -457,15 +483,8 @@ def phase_timing(seen):
         bytes_time = ops_time = 0.0
         err = 0.0
         for key, count in shapes.items():
-            if name == "decode_attention":
-                b, h, n, S, e, dt = key
-                c = decode_case(b, h, n, S, e, dt, g)
-            elif name == "flash_attention":
-                b, sq, h, sk, n, e, dt, causal, off, kvl = key
-                c = flash_case(b, sq, h, sk, n, e, dt, g, causal, off, kvl)
-            else:
-                c = topk_case(*key, g)
-            if name == "topk_retrieval":
+            c = REPLAY[name][1](key, g)
+            if "scores" in c:                   # top-k: values and ids
                 err = max(err, check_topk(c, exact_ids=False)[0])
             else:
                 err = max(err, check_close(c["kernel"](), c["plain"](),
@@ -505,8 +524,12 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     phase_models()
+    # each stage runs once, so launches and shapes are the query's own
     iso, seen = phase_serve("isolated W2", ["--workflow", "2",
-                                            "--queries", "1"])
+                                            "--queries", "1",
+                                            "--no-straggler-redispatch"])
+    assert iso["stragglers"] == 0
+    # the scheduler as it ships: straggler re-dispatch on
     cont, _ = phase_serve("serve+spec", ["--serve", "--spec-decode",
                                          "--queries", "2",
                                          "--inter-arrival", "0.05"])
@@ -514,10 +537,11 @@ def main() -> int:
         "the continuous run formed no batched or speculative round"
     timing = phase_timing(seen)
     table = []
-    for name, (src, replaces) in KERNELS.items():
-        t = timing[name]
+    from repro_torch.kernels import ops
+    for k in ops.KERNELS:
+        name, t = k.name, timing[k.name]
         table.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
+            name=name, route="cuda", source=k.source, replaces=k.replaces,
             launches=iso["launches"][name],
             launches_serve_spec=cont["launches"][name],
             max_abs_err=max(errs[name], t["max_abs_err"]),

@@ -28,7 +28,6 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("decode_attention", "flash_attention", "topk_retrieval")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # dtype codes of csrc/common.cuh
@@ -78,8 +77,9 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile every missing library in parallel (one nvcc per source).
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every missing library of ``names`` (``csrc/<name>.cu``) in
+    parallel, one nvcc per source.
     Returns {name: seconds} for those it compiled; prints ptxas' register
     and shared-memory report for each."""
     todo = [n for n in names if not lib_path(n).exists()]

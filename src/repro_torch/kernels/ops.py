@@ -1,4 +1,4 @@
-"""Public kernel entry points.
+"""Public kernel entry points, and the one table of the port's kernels.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``);
 a CUDA tensor goes to the hand-written kernel, which raises on anything it
@@ -6,6 +6,8 @@ does not take.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from types import ModuleType
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -15,9 +17,34 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk_retrieval as _topk
 
-COUNTERS = {"decode_attention": _decode.launches,
-            "flash_attention": _flash.launches,
-            "topk_retrieval": _topk.launches}
+
+@dataclass(frozen=True)
+class Kernel:
+    """One hand-written kernel.  ``module`` holds the wrapper (named like
+    the kernel) and its launch counter; ``source`` is ``csrc/<name>.cu``;
+    ``symbols`` are its ``__global__`` functions, as a device trace names
+    them."""
+    name: str
+    module: ModuleType
+    replaces: str               # the TPU kernel it ports, file:line
+    symbols: Tuple[str, ...]
+
+    @property
+    def source(self) -> str:
+        """Path of the CUDA source, relative to the repository root."""
+        return f"src/repro_torch/kernels/csrc/{self.name}.cu"
+
+
+KERNELS = (
+    Kernel("decode_attention", _decode,
+           "src/repro/kernels/decode_attention.py:25",
+           ("decode_split", "decode_combine")),
+    Kernel("flash_attention", _flash,
+           "src/repro/kernels/flash_attention.py:26", ("flash_fwd",)),
+    Kernel("topk_retrieval", _topk,
+           "src/repro/kernels/topk_retrieval.py:22",
+           ("topk_partial", "topk_merge")),
+)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -54,9 +81,9 @@ def topk_retrieval(queries: torch.Tensor, corpus: torch.Tensor,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: c.count for name, c in COUNTERS.items()}
+    return {k.name: k.module.launches.count for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for c in COUNTERS.values():
-        c.reset()
+    for k in KERNELS:
+        k.module.launches.reset()

@@ -17,6 +17,7 @@ wall times include the device work.  All stages share one CUDA stream.
 from __future__ import annotations
 
 import argparse
+import math
 import threading
 import time
 from dataclasses import dataclass
@@ -45,6 +46,9 @@ from repro_torch.rag.stages import DRAFT_MODELS
 # hash(role) % 97, which Python salts per process; an index into this tuple
 # gives the same weights in every run.
 ROLES = ("embed", "rerank", "search", "chat", "draft")
+# scheduler override under which the live heartbeat never declares a
+# running dispatch a straggler
+NO_STRAGGLER_REDISPATCH = {"straggler_factor": math.inf}
 
 
 def build_pipeline(seed: int = 0, *, device: DeviceLike = None,
@@ -70,27 +74,36 @@ def build_pipeline(seed: int = 0, *, device: DeviceLike = None,
     return tok, embedder, rerank, rewriter, chat, draft
 
 
-class TokenCount:
-    """Tokens the agents generated, summed over the executor threads."""
+class StageCounts:
+    """Tokens the agents generated and exceptions the stage fns raised,
+    summed over the executor threads.  Every attempt's exception counts:
+    the runtime retries a raising stage fn (``EV_RETRY``), but drops
+    unread the error of an attempt it already cancelled as a straggler."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self.n = 0
+        self.tokens = 0
+        self.errors = 0
 
-    def add(self, token_lists) -> None:
+    def add_tokens(self, token_lists) -> None:
         with self._lock:
-            self.n += sum(len(t) for t in token_lists)
+            self.tokens += sum(len(t) for t in token_lists)
+
+    def add_error(self) -> None:
+        with self._lock:
+            self.errors += 1
 
 
 def build_stage_fns(seed: int = 0, *, device: DeviceLike = None,
                     reduced: bool = True,
-                    tokens: Optional[TokenCount] = None):
+                    counts: Optional[StageCounts] = None):
     """Wire the executable pipeline into perf-stage callables — the
     ``stage_fns`` a live-backend :class:`HeroSession` dispatches to.
-    ``tokens``, if given, counts every token the agents generate."""
+    ``counts``, if given, counts every token the agents generate and
+    every exception a stage fn raises."""
     tok, embedder, reranker, rewriter, chat, draft = build_pipeline(
         seed, device=device, reduced=reduced)
-    tokens = tokens if tokens is not None else TokenCount()
+    counts = counts if counts is not None else StageCounts()
 
     docs = synth_documents(4, 400, seed=7)
     chunks = chunk_documents(docs, tok)
@@ -119,7 +132,7 @@ def build_stage_fns(seed: int = 0, *, device: DeviceLike = None,
             # spec_width candidate tokens per verify pass
             out = draft.generate(q_ids[:16],
                                  max_new=min(node.workload, 16)).token_ids
-            tokens.add([out])
+            counts.add_tokens([out])
             return out
         agent = rewriter if node.stage.startswith(("rewrite", "plan")) \
             else chat
@@ -133,7 +146,7 @@ def build_stage_fns(seed: int = 0, *, device: DeviceLike = None,
             group = max(1, min(batch, 8))
             outs = agent.generate_batch([q_ids[:16]] * len(members),
                                         max_new=group)
-            tokens.add(g.token_ids for g in outs)
+            counts.add_tokens(g.token_ids for g in outs)
             if node.payload.get("spec_width"):
                 # speculative verify pass: accept the drafted prefix that
                 # matches the target's own greedy tokens (both models are
@@ -141,15 +154,24 @@ def build_stage_fns(seed: int = 0, *, device: DeviceLike = None,
                 # is exact) and stamp the per-member accept counts
                 douts = draft.generate_batch([q_ids[:16]] * len(members),
                                              max_new=group)
-                tokens.add(g.token_ids for g in douts)
+                counts.add_tokens(g.token_ids for g in douts)
                 node.payload["spec_accepts"] = {
                     m.id: sum(1 for a, b in zip(g.token_ids, dg.token_ids)
                               if a == b)
                     for m, g, dg in zip(members, outs, douts)}
             return {m.id: g.token_ids for m, g in zip(members, outs)}
         out = agent.generate(q_ids[:16], max_new=min(batch, 8)).token_ids
-        tokens.add([out])
+        counts.add_tokens([out])
         return out
+
+    def counted(fn):
+        def run(node, batch):
+            try:
+                return fn(node, batch)
+            except Exception:
+                counts.add_error()
+                raise
+        return run
 
     stage_fns = {s: fn_llm for s in
                  ("rewrite_prefill", "rewrite_decode", "plan_prefill",
@@ -158,7 +180,7 @@ def build_stage_fns(seed: int = 0, *, device: DeviceLike = None,
                   "plan_draft", "refine_draft", "chat_draft")}
     stage_fns.update(embed=fn_embed, vsearch=fn_vsearch, rerank=fn_rerank,
                      __io__=lambda n, b: time.sleep(0.05))
-    return stage_fns
+    return {s: counted(fn) for s, fn in stage_fns.items()}
 
 
 class RecordingLiveBackend(LiveBackend):
@@ -188,6 +210,7 @@ class ServeReport:
     nodes: int             # DAG nodes over every run
     unfinished: List[str]  # ids of nodes that did not reach DONE
     retries: int           # EV_RETRY events: a stage fn raised
+    stage_errors: int      # exceptions over every attempt, cancelled too
     stragglers: int        # EV_STRAGGLER events: a dispatch overran its ETA
 
 
@@ -217,6 +240,11 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeReport:
     ap.add_argument("--full-width", action="store_true",
                     help="published qwen3 / qwen1.5-0.5b widths in bf16 "
                          "instead of the reduced f32 test configs")
+    ap.add_argument("--no-straggler-redispatch", action="store_true",
+                    help="never dispatch a running stage again as a "
+                         "straggler; the heartbeat's ETAs come from the "
+                         "perf model of the mobile SoC, not this device, "
+                         "so the re-dispatched copies duplicate work")
     args = ap.parse_args(argv)
 
     if args.prefix_cache or args.spec_decode:
@@ -225,15 +253,17 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeReport:
         traces = shared_corpus_traces(args.dataset, args.queries, seed=1)
     else:
         traces = sample_traces(args.dataset, args.queries, seed=1)
-    tokens = TokenCount()
+    counts = StageCounts()
     backend = RecordingLiveBackend(build_stage_fns(
-        device=args.device, reduced=not args.full_width, tokens=tokens))
+        device=args.device, reduced=not args.full_width, counts=counts))
     sess = HeroSession(world="sd8gen4", family="qwen3", backend=backend,
                        means=default_means(traces),
                        options=SessionOptions(
                            coalesce=bool(args.serve),
                            kv_pages=bool(args.prefix_cache),
-                           spec_decode=bool(args.spec_decode)))
+                           spec_decode=bool(args.spec_decode),
+                           cfg_overrides=NO_STRAGGLER_REDISPATCH
+                           if args.no_straggler_redispatch else None))
     for qi, tr in enumerate(traces):
         sess.submit(tr, wf=args.workflow,
                     arrival_time=qi * args.inter_arrival if args.serve
@@ -253,15 +283,17 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeReport:
     print(f"mean wall latency: {np.mean([r.makespan for r in results]):.2f}s "
           f"over {len(results)} queries")
     report = ServeReport(
-        session=sess, results=results, wall_s=wall, tokens=tokens.n,
+        session=sess, results=results, wall_s=wall, tokens=counts.tokens,
         nodes=sum(len(d.nodes) for d in backend.dags),
         unfinished=[n.id for d in backend.dags for n in d.nodes.values()
                     if n.status != DONE],
         retries=sum(1 for e in backend.events if e[1] == EV_RETRY),
+        stage_errors=counts.errors,
         stragglers=sum(1 for e in backend.events if e[1] == EV_STRAGGLER))
     print(f"run: {wall:.2f}s wall, {report.tokens} tokens generated, "
           f"{report.nodes} nodes ({len(report.unfinished)} unfinished), "
-          f"{report.retries} retries, {report.stragglers} stragglers")
+          f"{report.retries} retries, {report.stage_errors} stage errors, "
+          f"{report.stragglers} stragglers")
     run = sess.last_run
     if args.prefix_cache and run is not None:
         print(f"prefix cache: {run.kv_page_hits} page hits, "

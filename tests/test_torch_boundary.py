@@ -94,6 +94,35 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def _kernel_table():
+    from repro_torch.kernels import ops
+    return ops.KERNELS
+
+
+@pytest.mark.parametrize("kernel", _kernel_table(), ids=lambda k: k.name)
+def test_kernel_table_names_real_sources_and_tpu_kernels(kernel):
+    """Each row of ``ops.KERNELS`` points at its CUDA source, at every
+    ``__global__`` function in it, at the Pallas kernel it ports, and at a
+    wrapper module with a launch counter."""
+    import re
+    src = (ROOT / kernel.source).read_text()
+    globals_ = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        src))
+    assert globals_ == set(kernel.symbols)
+    path, line = kernel.replaces.rsplit(":", 1)
+    jax_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert re.match(r"def _\w+_kernel\(", jax_line), jax_line
+    assert callable(getattr(kernel.module, kernel.name))
+    assert kernel.module.launches.count >= 0
+
+
+def test_launch_counts_cover_the_kernel_table():
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {k.name: 0 for k in ops.KERNELS}
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from repro_torch.kernels import ops
     q = torch.zeros(1, 2, 16, device="meta")

@@ -5,13 +5,14 @@ no stage fn retried."""
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.api import HeroSession  # noqa: E402
-from repro_torch.core.events import EV_RETRY  # noqa: E402
+from repro_torch.core.events import EV_RETRY, EV_STRAGGLER  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.rag import default_means, sample_traces  # noqa: E402
@@ -20,33 +21,73 @@ SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 
 
 def test_w2_query_live_session_completes_without_retries():
-    tokens = serve.TokenCount()
+    counts = serve.StageCounts()
     traces = sample_traces("finqabench", 1, seed=1)
     sess = HeroSession(world="sd8gen4", family="qwen3", backend="live",
                        means=default_means(traces),
                        stage_fns=serve.build_stage_fns(device="cpu",
-                                                       tokens=tokens))
+                                                       counts=counts))
     sess.submit(traces[0], wf=2)
     ops.reset_launch_counts()
     (res,) = sess.run(mode="isolated", timeout=300)
     assert res.n_nodes > 10 and res.makespan > 0
     assert not [e for e in sess.last_run.events if e[1] == EV_RETRY]
-    assert tokens.n > 0
+    assert counts.tokens > 0 and counts.errors == 0
     # a CPU run takes the plain versions: no kernel launched
     assert set(ops.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("overrides,delay_s,retries", [
+    # the first rerank attempt overruns the 50 ms heartbeat floor, is
+    # cancelled and re-dispatched, and raises afterwards: the runtime drops
+    # that error unread and emits no EV_RETRY
+    ({"straggler_factor": 1e-9}, 0.5, 0),
+    # it raises at once with re-dispatch off: the runtime retries it
+    (serve.NO_STRAGGLER_REDISPATCH, 0.0, 1),
+], ids=["cancelled-straggler", "retried"])
+def test_stage_counts_see_every_failed_attempt(monkeypatch, overrides,
+                                               delay_s, retries):
+    from repro_torch.api import SessionOptions
+    from repro_torch.rag.embedder import Reranker
+    calls, score = [], Reranker.score
+
+    def flaky(self, *a, **kw):
+        calls.append(None)
+        if len(calls) == 1:
+            time.sleep(delay_s)
+            raise RuntimeError("injected fault in the first attempt")
+        return score(self, *a, **kw)
+    monkeypatch.setattr(Reranker, "score", flaky)
+    counts = serve.StageCounts()
+    traces = sample_traces("finqabench", 1, seed=1)
+    sess = HeroSession(world="sd8gen4", family="qwen3", backend="live",
+                       means=default_means(traces),
+                       options=SessionOptions(cfg_overrides=overrides),
+                       stage_fns=serve.build_stage_fns(device="cpu",
+                                                       counts=counts))
+    sess.submit(traces[0], wf=2)
+    sess.run(mode="isolated", timeout=300)
+    events = sess.last_run.events
+    assert sum(e[1] == EV_RETRY for e in events) == retries
+    if not retries:
+        assert any(e[1] == EV_STRAGGLER and "rerank" in e[2] for e in events)
+    assert counts.errors == 1
+
+
 @pytest.mark.parametrize("argv", [
     ["--workflow", "2", "--queries", "1"],
+    ["--workflow", "2", "--queries", "1", "--no-straggler-redispatch"],
     ["--serve", "--spec-decode", "--queries", "2", "--inter-arrival", "0.05"],
 ])
 def test_serve_main_reports_every_node_done(argv, capsys):
     report = serve.main(["--device", "cpu", *argv])
     assert report.nodes > 10
     assert report.unfinished == []
-    assert report.retries == 0
+    assert report.retries == 0 and report.stage_errors == 0
     assert report.tokens > 0
     assert len(report.results) == int(argv[argv.index("--queries") + 1])
+    if "--no-straggler-redispatch" in argv:
+        assert report.stragglers == 0
     assert "tokens generated" in capsys.readouterr().out
 
 
