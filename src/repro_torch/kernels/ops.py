@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import int8_matmul as _int8
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import topk_retrieval as _topk
 
 
@@ -44,6 +46,10 @@ KERNELS = (
     Kernel("topk_retrieval", _topk,
            "src/repro/kernels/topk_retrieval.py:22",
            ("topk_partial", "topk_merge")),
+    Kernel("int8_matmul", _int8,
+           "src/repro/kernels/int8_matmul.py:22", ("int8_mm",)),
+    Kernel("ssd_chunk", _ssd,
+           "src/repro/kernels/mamba2_scan.py:23", ("ssd_chunk_fwd",)),
 )
 
 
@@ -78,6 +84,22 @@ def topk_retrieval(queries: torch.Tensor, corpus: torch.Tensor,
     if _on_card(queries):
         return _topk.topk_retrieval(queries, corpus, k)
     return ref.topk_retrieval_ref(queries, corpus, k)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor,
+              dA: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if _on_card(x):
+        return _ssd.ssd_chunk(x, dt, B, C, dA)
+    return ref.ssd_chunk_ref(x, dt, B, C, dA)
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
+                sw: torch.Tensor,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    if _on_card(x):
+        return _int8.int8_matmul(x, w, sx, sw, out_dtype)
+    return ref.int8_matmul_ref(x, w, sx, sw, out_dtype)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels K1–K3: the CPU path, and what
+"""Plain PyTorch versions of the kernels K1–K5: the CPU path, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card."""
 from __future__ import annotations
 
@@ -35,3 +35,54 @@ def topk_retrieval_ref(queries: torch.Tensor, corpus: torch.Tensor,
     s = queries.float() @ corpus.float().T
     vals, idxs = torch.sort(s, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idxs[:, :k].to(torch.int32)
+
+
+def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
+                    sw: torch.Tensor,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x (M,K) int8, w (K,N) int8, sx (M,1), sw (1,N) -> (M,N) out_dtype:
+    the int32 sums, then ``(acc·sx)·sw`` in f32.
+
+    The sums go through a float64 product: every partial sum of int8
+    products is an integer below 2**53 for K < 2**39, so any order of
+    summation gives the exact int32 result, on the CPU and on the card
+    (where ``torch.matmul`` has no integer path)."""
+    acc = (x.double() @ w.double()).to(torch.int32)
+    return (acc.float() * sx.float() * sw.float()).to(out_dtype)
+
+
+def chunk_cumsum(dA: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 cumulative sum of the decays, accumulated in float64 and rounded
+    once: every implementation (this one, K5, on either device) then gets
+    the same f32 values whatever its order of summation.  At zamba2's
+    widths the sum reaches about -3000, where one f32 step is 2.4e-4, so
+    f32 sums in different orders would differ by more than the 2e-4 the
+    kernel is held to."""
+    return torch.cumsum(dA.double(), dim=dim).float()
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor,
+                  dA: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD intra-chunk term.  x (b,nc,Q,H,P); dt/dA (b,nc,Q,H);
+    B/C (b,nc,Q,H,N) (broadcast from groups to heads by the caller, as a
+    view or a copy) -> (y (b,nc,Q,H,P) f32, S (b,nc,H,N,P) f32)::
+
+        y[i] = sum_{j<=i} (C_i·B_j) exp(cs_i - cs_j) dt_j x_j
+        S    = sum_j B_j ⊗ exp(cs_last - cs_j) dt_j x_j,   cs = cumsum(dA)
+
+    The exponent is masked to -inf above the diagonal before ``exp``, so
+    no positive difference is ever exponentiated."""
+    dtx = x.float() * dt.float()[..., None]
+    cs = chunk_cumsum(dA.float(), dim=2)                  # (b,nc,Q,H)
+    Q = x.shape[2]
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]    # (b,nc,Qi,Qj,H)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(seg.masked_fill(~mask[None, None, :, :, None],
+                                  float("-inf")))
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", C.float(), B.float())
+    y = torch.einsum("bcqkh,bckhp->bcqhp", scores * L, dtx)
+    decay_end = torch.exp(cs[:, :, -1:, :] - cs)          # (b,nc,Q,H)
+    S = torch.einsum("bcqhn,bcqhp->bchnp",
+                     B.float() * decay_end[..., None], dtx)
+    return y, S

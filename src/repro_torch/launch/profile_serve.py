@@ -1,19 +1,24 @@
-"""Where the device time of one served query goes.
+"""Where the device time of one served workload goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path zamba2-engine
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
 where no kernel runs on a device.)
 
-Builds the live pipeline at the published widths (bf16, CUDA), serves one
-isolated W2 query once unprofiled (warm-up: allocator, cuBLAS handles,
-kernel build) and once under ``torch.profiler``, with straggler re-dispatch
-off so that every stage runs once, and prints as JSON: the wall time of
-the profiled run, the device's busy share of it (the union of kernel
-intervals over the wall time), the kernel time by category (the port's
-CUDA kernels, GEMMs, everything else) and the 12 heaviest kernels.  The
-profiler's own host overhead lengthens the wall time, so the busy share
-is a lower bound.
+``--path w2`` (the default) builds the live pipeline at the published
+widths (bf16, CUDA) and serves one isolated W2 query, with straggler
+re-dispatch off so that every stage runs once.  ``--path zamba2-engine``
+builds zamba2-1.2b at full width (bf16) and serves ``ENGINE_PROMPTS``
+through ``ServingEngine`` (max_len 1024, prefill chunks of 128, decode
+groups of 8, 24 new tokens each), the workload ``chip_smoke.py`` checks.
+Each runs once unprofiled (warm-up: allocator, cuBLAS handles, kernel
+build) and once under ``torch.profiler``, and prints as JSON: the wall
+time of the profiled run, the device's busy share of it (the union of
+kernel intervals over the wall time), the kernel time by category (the
+port's CUDA kernels, GEMMs, everything else) and the 12 heaviest kernels.
+The profiler's own host overhead lengthens the wall time, so the busy
+share is a lower bound.
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ import argparse
 import collections
 import json
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -34,6 +40,11 @@ from repro_torch.launch.serve import (NO_STRAGGLER_REDISPATCH,
                                       RecordingLiveBackend, StageCounts,
                                       build_stage_fns)
 from repro_torch.rag import default_means, sample_traces
+
+# the zamba2 engine workload: prompt lengths (at most 4 of the 6 hold a
+# slot at once; the 333-token prompt ends in a 77-token chunk)
+ENGINE_PROMPTS = (64, 200, 333, 512, 700, 900)
+ENGINE_NEW_TOKENS = 24
 
 # the port's own kernels, by their __global__ names
 PORT_KERNELS = tuple(s for k in ops.KERNELS for s in k.symbols)
@@ -59,6 +70,51 @@ def _union_ms(spans: List[Tuple[float, float]]) -> float:
     return total / 1e3          # profiler times are in microseconds
 
 
+def w2_runner(dev: torch.device) -> Callable[[], dict]:
+    """-> a function that serves one isolated W2 query and returns its
+    wall time, per-stage latencies, stragglers and tokens."""
+    counts = StageCounts()
+    stage_fns = build_stage_fns(device=dev, reduced=dev.type == "cpu",
+                                counts=counts)
+
+    def run() -> dict:
+        counts.tokens = 0
+        out = serve_once(stage_fns)
+        assert counts.errors == 0, f"{counts.errors} stage fns raised"
+        return dict(out, tokens=counts.tokens)
+    return run
+
+
+def engine_runner(dev: torch.device) -> Callable[[], dict]:
+    """-> a function that serves the zamba2 engine workload (a fresh
+    engine each time, the same prompts) and returns its wall time and
+    tokens.  On the CPU the model is reduced to 7 layers at f32."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("zamba2-1.2b")
+    if dev.type == "cpu":
+        cfg = reduced(cfg, layers=7)
+    params = build_model(cfg, dev).init(12)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in ENGINE_PROMPTS]
+
+    def run() -> dict:
+        eng = ServingEngine(cfg, params, max_len=1024, prefill_chunk=128,
+                            token_group=8)
+        for p in prompts:
+            eng.submit(p, max_new=ENGINE_NEW_TOKENS)
+        t0 = time.monotonic()
+        done = eng.run_to_completion()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        assert len(done) == len(prompts), "a request did not finish"
+        return {"wall_s": time.monotonic() - t0, "requests": len(done),
+                "tokens": sum(len(r.generated) for r in done)}
+    return run
+
+
 def serve_once(stage_fns) -> dict:
     """One isolated W2 query; -> its wall time and per-stage latencies."""
     traces = sample_traces("finqabench", 1, seed=1)
@@ -81,17 +137,14 @@ def serve_once(stage_fns) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None)
+    ap.add_argument("--path", choices=("w2", "zamba2-engine"), default="w2")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    counts = StageCounts()
-    stage_fns = build_stage_fns(device=dev, reduced=dev.type == "cpu",
-                                counts=counts)
-    warm = serve_once(stage_fns)
-    counts.tokens = 0
+    run_once = (w2_runner if args.path == "w2" else engine_runner)(dev)
+    warm = run_once()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run = serve_once(stage_fns)
-    assert counts.errors == 0, f"{counts.errors} stage fns raised"
+        run = run_once()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.time_range.end > e.time_range.start]
@@ -108,10 +161,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     out = {
         "device": (torch.cuda.get_device_name(0) if dev.type == "cuda"
                    else "cpu"),
+        "path": args.path,
         "warm_wall_s": warm["wall_s"], "profiled_wall_s": run["wall_s"],
-        "stragglers": run["stragglers"],
-        "stage_latency_s": run["stage_latency_s"],
-        "tokens": counts.tokens, "kernel_launches": len(kernels),
+        **{k: v for k, v in run.items() if k != "wall_s"},
+        "kernel_launches": len(kernels),
         "device_busy_ms": busy,
         "device_busy_share": busy / (run["wall_s"] * 1e3),
         "kernel_ms_by_category": dict(by_cat),

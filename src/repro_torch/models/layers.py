@@ -7,8 +7,9 @@ package's names and layouts (``wq (d,h,e)``, ``wk``/``wv (d,n,e)``,
 Matmuls run in the parameter dtype, softmax and norms in float32.
 
 ``mha`` is the plain reference attention.  ``attention`` sends the dense
-path through the kernels (``kernels/ops.py``): the flash kernel for no
-cache or a prefill chunk, the decode kernel for a single new token.
+family and the hybrid family's shared block through the kernels
+(``kernels/ops.py``): the flash kernel for no cache or a prefill chunk,
+the decode kernel for a single new token.
 """
 from __future__ import annotations
 
@@ -145,14 +146,17 @@ def attention(p: Params, x: torch.Tensor, *, positions: torch.Tensor,
     reads the valid prefix ``[:cache_idx + sq]`` as a view.
 
     ``window`` > 0 (sliding window) and ``kv_override`` (cross-attention)
-    are off the dense path: they run the plain ``mha`` on the CPU and raise
-    on CUDA until the slice of the other model families.
+    are off the ported paths (the dense family, and the hybrid family's
+    shared block below the ring cache's 32768 positions): they run the
+    plain ``mha`` on the CPU and raise on CUDA until the ring cache and the
+    vlm/audio families are ported with windowed and cross-attention
+    kernels.
     """
     dtype = x.dtype
     if (window > 0 or kv_override is not None) and x.is_cuda:
         raise NotImplementedError(
             "sliding-window and cross-attention have no CUDA kernel yet; "
-            "they come with the port of the hybrid/vlm/audio families")
+            "they come with the ring cache and the vlm/audio families")
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]

@@ -1,6 +1,7 @@
 """Public model facade — port of ``repro/models/model.py`` (serving part):
 ``build_model(cfg, device)`` -> :class:`Model` with ``init``, ``apply``,
-``prefill``, ``decode_step`` and ``init_cache``."""
+``prefill``, ``decode_step`` and ``init_cache``, for the ported families
+(dense and hybrid; ``lm.PORTED_FAMILIES``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional, Tuple
@@ -15,7 +16,7 @@ from repro_torch.models import lm
 class Model(NamedTuple):
     cfg: ModelConfig
     device: torch.device
-    init: Callable[[int], lm.DenseLM]
+    init: Callable[[int], lm.LM]
     apply: Callable[..., Tuple[torch.Tensor, torch.Tensor, Optional[lm.Cache]]]
     prefill: Callable[..., Tuple[torch.Tensor, lm.Cache]]
     decode_step: Callable[..., Tuple[torch.Tensor, lm.Cache]]
@@ -23,9 +24,10 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+    lm.require_ported(cfg)
     dev = resolve_device(device)
 
-    def init(seed: int) -> lm.DenseLM:
+    def init(seed: int) -> lm.LM:
         return lm.init_params(cfg, make_generator(seed, dev), dev)
 
     def apply(params, batch, *, mode="train", cache=None):

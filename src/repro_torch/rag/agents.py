@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model, build_model
-from repro_torch.models.lm import DenseLM
+from repro_torch.models.lm import LM
 from repro_torch.rag.tokenizer import EOS
 
 
@@ -26,7 +26,7 @@ class LMAgent:
     Runs on the device its parameters live on.  ``argmax`` takes the first
     maximum, as ``jnp.argmax`` does."""
 
-    def __init__(self, cfg: ModelConfig, params: DenseLM, max_len: int = 512):
+    def __init__(self, cfg: ModelConfig, params: LM, max_len: int = 512):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

@@ -38,7 +38,7 @@ def hidden_states(params: lm.DenseLM, cfg: ModelConfig,
         raise NotImplementedError(cfg.family)
     x = F.embedding(tokens, params.embed)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, _ = lm._run_dense_stack(params.blocks, cfg, x, positions, None, None)
+    x = lm._run_dense_stack(params.blocks, cfg, x, positions, None, None)
     return L.rmsnorm(params.final_norm, x, cfg.norm_eps)
 
 

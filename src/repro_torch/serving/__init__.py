@@ -1,2 +1,2 @@
-# serving/engine.py (ServingEngine) is not ported yet: a later slice.
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.executor import HeroRuntime, PUExecutor  # noqa: F401

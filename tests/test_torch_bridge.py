@@ -89,3 +89,42 @@ def test_cache_round_trip_bit_exact(dtype):
                                               tcfg.num_kv_heads,
                                               tcfg.resolved_head_dim)
     _assert_same_tree(cache, bridge.cache_from_torch(tc))
+
+
+def _hybrid_cfgs(dtype):
+    from repro.configs import get_config
+    jcfg = reduced(get_config("zamba2-1.2b"), layers=7)
+    tcfg = t_reduced(t_get_config("zamba2-1.2b"), layers=7)
+    return (dataclasses.replace(jcfg, dtype=dtype),
+            dataclasses.replace(tcfg, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_params_round_trip_bit_exact(dtype):
+    """Stacked ``blocks`` {ln, mamba} and the one unstacked ``shared``
+    dense block cross both ways unchanged."""
+    jcfg, tcfg = _hybrid_cfgs(dtype)
+    params = jax.tree.map(np.asarray,
+                          jlm.init_params(jax.random.PRNGKey(3), jcfg))
+    assert params["blocks"]["mamba"]["wx"].shape[0] == 7
+    model = bridge.params_to_torch(params, tcfg, device="cpu")
+    assert len(model.blocks) == 7
+    assert model.blocks[0].mamba["A_log"].dtype == torch.float32
+    assert model.shared.attn["wq"].dtype == model.embed.dtype
+    _assert_same_tree(params, bridge.params_from_torch(model))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_cache_round_trip_bit_exact(dtype):
+    jcfg, tcfg = _hybrid_cfgs(dtype)
+    cache = jlm.init_cache(jcfg, batch=2, max_len=24)
+    rng = np.random.default_rng(4)
+    cache = jax.tree.map(
+        lambda v: np.asarray(jnp.asarray(rng.standard_normal(v.shape),
+                                         v.dtype)), cache)
+    cache["idx"] = np.asarray(9, np.int32)
+    tc = bridge.cache_to_torch(cache, device="cpu")
+    assert tc["idx"] == 9 and sorted(tc) == ["attn", "idx", "mamba"]
+    assert tuple(tc["attn"]["k"].shape) == (1, 2, 24, tcfg.num_kv_heads,
+                                            tcfg.resolved_head_dim)
+    _assert_same_tree(cache, bridge.cache_from_torch(tc))

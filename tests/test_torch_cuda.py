@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 of the PyTorch port against their plain PyTorch
+"""The CUDA kernels K1-K5 of the PyTorch port against their plain PyTorch
 versions, on an NVIDIA GPU (marked ``cuda``; they skip without one).
 
 This file imports no JAX, so it runs on a machine with only PyTorch and
@@ -8,7 +8,9 @@ the CUDA toolkit; ``tests/conftest.py`` imports JAX, so there run
 
 Tolerances: f32 2e-5, bf16 2e-2 (the kernels sum in another order and
 round probabilities to bf16 at another point than ``mha``), top-k values
-1e-4 with ids exactly equal.  TF32 is off for the plain versions' products.
+1e-4 with ids exactly equal, the int8 product exactly equal, the SSD
+chunk 2e-4 (f32 outputs from sums of up to 256 products in another
+order).  TF32 is off for the plain versions' products.
 """
 import pytest
 
@@ -93,3 +95,53 @@ def test_topk_kernel_matches_plain(cuda, nq, N, d, k):
     torch.cuda.synchronize()
     np.testing.assert_allclose(gv.cpu().numpy(), wv.cpu().numpy(), atol=1e-4)
     np.testing.assert_array_equal(gi.cpu().numpy(), wi.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(128, 256, 192), (64, 64, 64),
+                                   (256, 128, 512), (512, 512, 512),
+                                   (128, 2048, 4096), (77, 100, 33)])
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+def test_int8_kernel_matches_plain_exactly(cuda, M, K, N, out_dtype):
+    from repro_torch.kernels import int8_matmul as k4
+    rng = np.random.default_rng(23)
+    x = _dev(rng, (M, K), "float32", cuda)
+    w = _dev(rng, (K, N), "float32", cuda)
+    xq, sx = k4.quantize_int8(x, axis=1)
+    wq, sw = k4.quantize_int8(w, axis=0)
+    got = k4.int8_matmul(xq, wq, sx, sw, DTYPES[out_dtype])
+    want = ref.int8_matmul_ref(xq, wq, sx, sw, DTYPES[out_dtype])
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+def _ssd_inputs(rng, b, nc, Q, H, P, N, dtype, device, groups=None):
+    x = _dev(rng, (b, nc, Q, H, P), dtype, device)
+    dt = torch.nn.functional.softplus(_dev(rng, (b, nc, Q, H), "float32",
+                                           device))
+    A = -torch.linspace(1.0, 16.0, H, device=device)
+    G = H if groups is None else groups
+    B = _dev(rng, (b, nc, Q, G, N), dtype, device)
+    C = _dev(rng, (b, nc, Q, G, N), dtype, device)
+    if groups == 1:          # one group broadcast to every head, stride 0
+        B, C = (t.expand(-1, -1, -1, H, -1) for t in (B, C))
+    return x, dt, B, C, dt * A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,Q,H,P,N,groups", [
+    (2, 3, 32, 4, 16, 8, None), (1, 2, 64, 8, 32, 16, None),
+    (2, 1, 16, 2, 8, 8, None),
+    # zamba2-1.2b at full width: 64 heads, P = N = 64, one group
+    (1, 1, 1, 64, 64, 64, 1), (1, 1, 77, 64, 64, 64, 1),
+    (1, 1, 128, 64, 64, 64, 1), (1, 2, 256, 64, 64, 64, 1)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_kernel_matches_plain(cuda, b, nc, Q, H, P, N, groups, dtype):
+    from repro_torch.kernels import ssd_chunk as k5
+    rng = np.random.default_rng(24)
+    args = _ssd_inputs(rng, b, nc, Q, H, P, N, dtype, cuda, groups)
+    y, S = k5.ssd_chunk(*args)
+    wy, wS = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(y), _f32(wy), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_f32(S), _f32(wS), atol=2e-4, rtol=2e-4)

@@ -1,11 +1,12 @@
-"""Kernels K1-K3 of the PyTorch port.
+"""Kernels K1-K5 of the PyTorch port.
 
 On the CPU: the plain PyTorch versions (``repro_torch.kernels.ref``, what
 the wrappers run for a CPU tensor) against the Pallas TPU kernels run in
 interpret mode, on the sweeps of ``tests/test_kernels.py``, and against
 the JAX ``mha`` where the port's kernels go beyond the Pallas ones
 (``q_offset``/``kv_len``, a length-0 decode row).  Tolerances: f32 2e-5,
-bf16 2e-2, top-k values 1e-4 with ids exactly equal.
+bf16 2e-2, top-k values 1e-4 with ids exactly equal, int8 product 1e-2
+(the reference sweep's; the port's is exact), SSD chunk 2e-4.
 
 The CUDA kernels themselves are held to these plain versions in
 ``tests/test_torch_cuda.py``, on a card.
@@ -20,10 +21,14 @@ import numpy as np  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pl_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pl_flash  # noqa: E402
+from repro.kernels.int8_matmul import int8_matmul as pl_int8  # noqa: E402
+from repro.kernels.int8_matmul import quantize_int8 as jquantize  # noqa: E402
+from repro.kernels.mamba2_scan import ssd_chunk as pl_ssd  # noqa: E402
 from repro.kernels.topk_retrieval import topk_retrieval as pl_topk  # noqa: E402
 from repro.models.layers import mha as jmha  # noqa: E402
 from repro_torch.bridge import to_torch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.int8_matmul import quantize_int8  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -176,3 +181,102 @@ def test_topk_ties_and_large_k_match_lax_top_k(k):
                                 torch.from_numpy(corpus), k)
     np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-4)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+# -- K4 int8 matmul ----------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", [
+    (128, 256, 192, 64, 64, 64),
+    (64, 64, 64, 64, 64, 64),
+    (256, 128, 512, 128, 256, 128),
+])
+def test_int8_plain_and_quantize_match_pallas(M, K, N, bm, bn, bk):
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    jxq, jsx = jquantize(jnp.asarray(x), axis=1)
+    jwq, jsw = jquantize(jnp.asarray(w), axis=0)
+    xq, sx = quantize_int8(torch.from_numpy(x), axis=1)
+    wq, sw = quantize_int8(torch.from_numpy(w), axis=0)
+    assert xq.dtype == torch.int8 and sx.shape == (M, 1)
+    assert sw.shape == (1, N)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
+    np.testing.assert_array_equal(wq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+    np.testing.assert_array_equal(sw.numpy(), np.asarray(jsw))
+    want = pl_int8(jxq, jwq, jsx, jsw, block_m=bm, block_n=bn, block_k=bk,
+                   interpret=True)
+    got = ops.int8_matmul(xq, wq, sx, sw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-2)
+    # the int8 product approximates the f32 one
+    dense = x @ w
+    rel = np.abs(_f32(got) - dense).mean() / np.abs(dense).mean()
+    assert rel < 0.05
+
+
+def test_int8_plain_sums_exactly():
+    """Extreme int8 values over a long K: the float64 route gives the exact
+    int32 sums (one f32 rounding, then the scales)."""
+    rng = np.random.default_rng(18)
+    x = rng.choice([-127, 127, -1, 0, 1], size=(5, 4096)).astype(np.int8)
+    w = rng.choice([-127, 127, 3], size=(4096, 7)).astype(np.int8)
+    acc = x.astype(np.int64) @ w.astype(np.int64)
+    one = torch.ones((5, 1)), torch.ones((1, 7))
+    got = ops.int8_matmul(torch.from_numpy(x), torch.from_numpy(w), *one,
+                          out_dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), acc.astype(np.float32))
+
+
+# -- K5 SSD intra-chunk ------------------------------------------------------
+
+def _ssd_inputs(rng, b, nc, Q, H, P, N):
+    x = rng.standard_normal((b, nc, Q, H, P)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, nc, Q, H)), 0).astype(
+        np.float32)
+    B = rng.standard_normal((b, nc, Q, H, N)).astype(np.float32)
+    C = rng.standard_normal((b, nc, Q, H, N)).astype(np.float32)
+    dA = (-dt * 0.5).astype(np.float32)
+    return x, dt, B, C, dA
+
+
+@pytest.mark.parametrize("b,nc,Q,H,P,N", [
+    (2, 3, 32, 4, 16, 8),
+    (1, 2, 64, 8, 32, 16),
+    (2, 1, 16, 2, 8, 8),
+    (1, 1, 1, 4, 16, 8),       # decode: one token
+    (1, 2, 77, 4, 16, 8),      # the last prefill chunk of a 333-token prompt
+])
+def test_ssd_plain_matches_pallas(b, nc, Q, H, P, N):
+    arrays = _ssd_inputs(np.random.default_rng(19), b, nc, Q, H, P, N)
+    wy, wS = pl_ssd(*map(jnp.asarray, arrays), interpret=True)
+    y, S = ops.ssd_chunk(*map(torch.from_numpy, arrays))
+    assert y.dtype == torch.float32 and S.shape == (b, nc, H, N, P)
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_allclose(S.numpy(), np.asarray(wS), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_ssd_plain_reads_a_head_broadcast_view():
+    """B/C broadcast from one group to every head as a stride-0 view (what
+    ``mamba2_forward`` passes) give what a copy per head gives."""
+    x, dt, B, C, dA = _ssd_inputs(np.random.default_rng(20), 1, 2, 24, 4,
+                                  8, 8)
+    B1, C1 = torch.from_numpy(B[:, :, :, :1]), torch.from_numpy(C[:, :, :, :1])
+    Bv, Cv = B1.expand(-1, -1, -1, 4, -1), C1.expand(-1, -1, -1, 4, -1)
+    assert Bv.stride(3) == 0
+    tx, tdt, tdA = map(torch.from_numpy, (x, dt, dA))
+    y, S = ops.ssd_chunk(tx, tdt, Bv, Cv, tdA)
+    wy, wS = ops.ssd_chunk(tx, tdt, Bv.contiguous(), Cv.contiguous(), tdA)
+    assert torch.equal(y, wy) and torch.equal(S, wS)
+
+
+def test_ssd_plain_is_finite_at_zamba2_decays():
+    """zamba2's strongest decay (A = -16) over a full 256-token chunk: the
+    exponent is masked before exp, so nothing overflows to inf or NaN."""
+    rng = np.random.default_rng(21)
+    x, dt, B, C, _ = _ssd_inputs(rng, 1, 1, 256, 2, 8, 8)
+    dA = (dt * -16.0).astype(np.float32)
+    y, S = ops.ssd_chunk(*map(torch.from_numpy, (x, dt, B, C, dA)))
+    assert bool(y.isfinite().all()) and bool(S.isfinite().all())

@@ -1,6 +1,8 @@
-"""The port's dense LM against ``repro.models.lm`` on bridged weights: the
+"""The port's LMs against ``repro.models.lm`` on bridged weights: the
 port of ``test_models.py::test_prefill_decode_matches_forward`` for the
-qwen3 stage models and the qwen1.5-0.5b draft (reduced, f32).
+qwen3 stage models and the qwen1.5-0.5b draft (dense), and for zamba2-1.2b
+(hybrid) reduced to 7 layers, so that it has one group of 6 Mamba2
+layers, the shared attention block and one tail layer (reduced, f32).
 
 Logits of the full forward, the prefill and every decode step match the
 JAX package's to 1e-4; within the port, prefill and decode match its own
@@ -23,12 +25,16 @@ from repro_torch.configs import get_family as t_get_family  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
 
+# (JAX config, port config), reduced
 CONFIGS = {
-    **{f"qwen3-{role}": (lambda r=role: get_family("qwen3")[r],
-                         lambda r=role: t_get_family("qwen3")[r])
+    **{f"qwen3-{role}": (lambda r=role: reduced(get_family("qwen3")[r]),
+                         lambda r=role: t_reduced(t_get_family("qwen3")[r]))
        for role in ("embed", "rerank", "search", "chat")},
-    "qwen1.5-0.5b": (lambda: get_config("qwen1.5-0.5b"),
-                     lambda: t_get_config("qwen1.5-0.5b")),
+    "qwen1.5-0.5b": (lambda: reduced(get_config("qwen1.5-0.5b")),
+                     lambda: t_reduced(t_get_config("qwen1.5-0.5b"))),
+    # 7 layers: a group of 6 Mamba2 layers, the shared block, one tail layer
+    "zamba2-1.2b": (lambda: reduced(get_config("zamba2-1.2b"), layers=7),
+                    lambda: t_reduced(t_get_config("zamba2-1.2b"), layers=7)),
 }
 
 
@@ -38,7 +44,7 @@ def _close(t, j, atol):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_prefill_decode_matches_forward_and_jax(name):
-    jcfg, tcfg = (reduced(f()) for f in CONFIGS[name])
+    jcfg, tcfg = (f() for f in CONFIGS[name])
     jmodel, tmodel = j_build(jcfg), t_build(tcfg, "cpu")
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tparams = bridge.params_to_torch(jax.tree.map(np.asarray, jparams),
@@ -64,7 +70,11 @@ def test_prefill_decode_matches_forward_and_jax(name):
         _close(tlg, jlg, 1e-4)
         assert float((tlg - tfull[:, t]).abs().max()) < 1e-3
     assert tcache["idx"] == S
-    _close(tcache["layers"]["k"], jcache["layers"]["k"], 1e-4)
+    tc = bridge.cache_from_torch(tcache)
+    for group, leaves in tc.items():
+        if group != "idx":
+            for leaf, v in leaves.items():
+                _close(torch.from_numpy(v), jcache[group][leaf], 1e-4)
 
 
 def test_init_params_follows_the_reference_distributions():
@@ -89,3 +99,24 @@ def test_init_params_follows_the_reference_distributions():
     # same seed, same weights
     assert torch.equal(t_build(cfg, "cpu").init(0).blocks[0].attn["wq"],
                        b0.attn["wq"])
+
+
+def test_hybrid_cache_layout_and_unported_paths():
+    """The hybrid cache stacks the Mamba2 states on a layer axis and holds
+    one K/V slice per shared-block application; the ring cache (above
+    32768 positions) and the unported families raise."""
+    from repro_torch.models import lm as tlm
+    cfg = t_reduced(t_get_config("zamba2-1.2b"), layers=7)
+    c = t_build(cfg, "cpu").init_cache(2, 48)
+    di, K = cfg.ssm.expand * cfg.d_model, cfg.ssm.conv_kernel
+    H = di // cfg.ssm.head_dim
+    assert tuple(c["mamba"]["ssm"].shape) == (7, 2, H, cfg.ssm.head_dim,
+                                              cfg.ssm.state_size)
+    assert tuple(c["mamba"]["conv_x"].shape) == (7, 2, K - 1, di)
+    assert tuple(c["attn"]["k"].shape) == (1, 2, 48, cfg.num_kv_heads,
+                                           cfg.resolved_head_dim)
+    with pytest.raises(NotImplementedError, match="ring cache"):
+        tlm.init_cache(cfg, 1, 40000, torch.device("cpu"))
+    for arch in ("deepseek-v2-236b", "xlstm-350m", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t_build(t_reduced(t_get_config(arch)), "cpu")
