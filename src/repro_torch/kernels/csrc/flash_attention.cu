@@ -158,10 +158,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
            long long kss, long long ksn, long long vsb, long long vss,
            long long vsn, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<E>();
-  cudaError_t err = cudaFuncSetAttribute(
+  // once per instantiation (a thread-safe static), not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   flash_fwd<T, E><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

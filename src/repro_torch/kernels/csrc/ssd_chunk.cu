@@ -10,10 +10,12 @@
 // dt and dA in f32; y and S come out in f32.
 //
 // What bounds it on the H100: operations.  At zamba2's widths (Q = 256,
-// P = N = 64) a cell does Q(Q+1)/2 (N + P) + Q N P multiply-adds on f32
-// operands (dt·x and the masked scores are f32 whatever the input type)
-// against about 100 KB of input and output, so it sits above the bytes
-// line of the card's f32 CUDA-core rate.
+// P = N = 64) a cell does Q(Q+1)/2 N multiply-adds for the scores C·Bᵀ,
+// on operands of the input type with f32 sums (exact, so bf16 inputs
+// could take the bf16 tensor cores), and Q(Q+1)/2 P + Q N P on f32
+// operands (the masked scores, dt·x and the decayed B are f32 whatever
+// the input type), against about 100 KB of input and output, so it sits
+// above the bytes line, mostly on the card's f32 CUDA-core rate.
 //
 // Design.  The TPU kernel holds a whole cell, with its Q x Q mask, in one
 // VMEM tile; at Q = 256 the f32 mask-times-scores tile alone is 256 KB,
@@ -215,10 +217,12 @@ int launch(const void* x, const void* dt, const void* B, const void* C,
            const void* dA, void* y, void* S, int b, int nc, int Q, int H,
            int P, int N, Strides xs, Strides dts, Strides Bs, Strides Cs,
            Strides dAs, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+  // once per instantiation (a thread-safe static), not on every launch:
+  // decode launches K5 once per layer per token
+  static const cudaError_t attr = cudaFuncSetAttribute(
       ssd_chunk_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   dim3 grid((Q + kT - 1) / kT + 1, H, b * nc);
   ssd_chunk_fwd<T><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),

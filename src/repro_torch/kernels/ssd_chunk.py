@@ -93,11 +93,15 @@ def bytes_moved(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
             + 4 * (b * nc * Q * H * Pd + b * nc * H * N * Pd))
 
 
-def flops(x: torch.Tensor, B: torch.Tensor) -> int:
-    """Multiply-adds (2 flops each) of the causal scores C·Bᵀ and their
-    product with dt·x over the Q(Q+1)/2 visible pairs, and of the state
-    Bᵀ(dt·x); the elementwise exp and scaling are not counted."""
+def flops(x: torch.Tensor, B: torch.Tensor) -> Tuple[int, int]:
+    """-> (scores, f32): flops (2 per multiply-add) of the causal scores
+    C·Bᵀ over the Q(Q+1)/2 visible pairs, a product of the inputs' own
+    type with f32 sums, which that type's tensor cores compute exactly;
+    and of the products on f32 operands, (scores ⊙ L)(dt·x) over the same
+    pairs and the state (B ⊙ decay)ᵀ(dt·x).  The elementwise exp and
+    scaling are not counted."""
     b, nc, Q, H, Pd = x.shape
     N = B.shape[-1]
     pairs = Q * (Q + 1) // 2
-    return 2 * b * nc * H * (pairs * (N + Pd) + Q * N * Pd)
+    cells = 2 * b * nc * H
+    return cells * pairs * N, cells * (pairs * Pd + Q * N * Pd)

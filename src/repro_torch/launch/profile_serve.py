@@ -11,7 +11,8 @@ widths (bf16, CUDA) and serves one isolated W2 query, with straggler
 re-dispatch off so that every stage runs once.  ``--path zamba2-engine``
 builds zamba2-1.2b at full width (bf16) and serves ``ENGINE_PROMPTS``
 through ``ServingEngine`` (max_len 1024, prefill chunks of 128, decode
-groups of 8, 24 new tokens each), the workload ``chip_smoke.py`` checks.
+groups of 8, 24 new tokens each): ``engine_model`` and
+``engine_workload``, which ``chip_smoke.py`` serves too.
 Each runs once unprofiled (warm-up: allocator, cuBLAS handles, kernel
 build) and once under ``torch.profiler``, and prints as JSON: the wall
 time of the profiled run, the device's busy share of it (the union of
@@ -85,31 +86,47 @@ def w2_runner(dev: torch.device) -> Callable[[], dict]:
     return run
 
 
-def engine_runner(dev: torch.device) -> Callable[[], dict]:
-    """-> a function that serves the zamba2 engine workload (a fresh
-    engine each time, the same prompts) and returns its wall time and
-    tokens.  On the CPU the model is reduced to 7 layers at f32."""
+def engine_model(dev: torch.device):
+    """-> (cfg, model, params) of the zamba2 engine workload: zamba2-1.2b
+    at its published widths, random weights from seed 12.  On the CPU the
+    model is reduced to 7 layers at f32."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import build_model
-    from repro_torch.serving import ServingEngine
     cfg = get_config("zamba2-1.2b")
     if dev.type == "cpu":
         cfg = reduced(cfg, layers=7)
-    params = build_model(cfg, dev).init(12)
+    model = build_model(cfg, dev)
+    return cfg, model, model.init(12)
+
+
+def engine_workload(cfg, params):
+    """-> a fresh ``ServingEngine`` over ``params`` (max_len 1024, prefill
+    chunks of 128, decode groups of 8) with the workload's requests
+    submitted: ``ENGINE_PROMPTS`` of random ids from seed 12,
+    ``ENGINE_NEW_TOKENS`` new tokens each."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, params, max_len=1024, prefill_chunk=128,
+                        token_group=8)
     rng = np.random.default_rng(12)
-    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
-               for n in ENGINE_PROMPTS]
+    for n in ENGINE_PROMPTS:
+        eng.submit(rng.integers(3, cfg.vocab_size, n).tolist(),
+                   max_new=ENGINE_NEW_TOKENS)
+    return eng
+
+
+def engine_runner(dev: torch.device) -> Callable[[], dict]:
+    """-> a function that serves the zamba2 engine workload (a fresh
+    engine each time, the same prompts) and returns its wall time and
+    tokens."""
+    cfg, _, params = engine_model(dev)
 
     def run() -> dict:
-        eng = ServingEngine(cfg, params, max_len=1024, prefill_chunk=128,
-                            token_group=8)
-        for p in prompts:
-            eng.submit(p, max_new=ENGINE_NEW_TOKENS)
+        eng = engine_workload(cfg, params)
         t0 = time.monotonic()
         done = eng.run_to_completion()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        assert len(done) == len(prompts), "a request did not finish"
+        assert len(done) == len(ENGINE_PROMPTS), "a request did not finish"
         return {"wall_s": time.monotonic() - t0, "requests": len(done),
                 "tokens": sum(len(r.generated) for r in done)}
     return run
