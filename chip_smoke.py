@@ -8,10 +8,17 @@ failure ends the run with a non-zero exit code and no result line:
 
 1. build    — compile the five CUDA kernels (one nvcc per source, in
               parallel).
+1b. SASS    — the machine code of the redesigned kernels: K2's bf16
+              kernel issues wgmma (HGMMA) and TMA loads (UTMALDG), K3's
+              cp.async (LDGSTS).
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
-              K1–K3 at the qwen3 / qwen1.5-0.5b shapes, K5 (SSD chunk) at
+              K1–K3 at the qwen3 / qwen1.5-0.5b shapes; K2 in bf16 (the
+              wgmma kernel) at e in {16, 64, 128} x g in {1, 2, 4}, at the
+              zamba2 engine's shapes (split key range) and with kv_len < sk
+              or 0; K3 over every split plan (nq in {1, 16}, N in {128,
+              5000, 65536}, k in {8, 112, 131, 256}); K5 (SSD chunk) at
               zamba2's (64 heads, P = N = 64) for Q in {1, 77, 128, 256} and
               nc in {1, 2}, K4 (int8 product, on no path) at the reference
               sweep's, the bench's and one zamba2 projection's shapes.
@@ -338,6 +345,18 @@ def phase_build():
     took = _build.build(k.name for k in ops.KERNELS)
     say(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s "
         f"(nvcc {_build.nvcc()})")
+    # the machine code of the redesigned kernels: wgmma (HGMMA) and TMA
+    # loads (UTMALDG) in K2's bf16 kernel, cp.async (LDGSTS) in K3's
+    for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG")),
+                          ("topk_retrieval", ("LDGSTS",))):
+        counts = _build.sass_counts(name, opcodes)
+        say(f"[build] {name} SASS: " + " | ".join(
+            f"{fn}: " + ", ".join(f"{c} {op}" for op, c in ops_.items())
+            for fn, ops_ in sorted(counts.items())))
+        if name == "flash_attention":
+            assert all(v["HGMMA"] > 0 and v["UTMALDG"] > 0
+                       for fn, v in counts.items()
+                       if fn.startswith("flash_fwd_wgmma")), counts
 
 
 def phase_kernels():
@@ -389,23 +408,84 @@ def phase_kernels():
                 if dt == torch.bfloat16:
                     line += " | " + fmt(measure(c))
                 say(line)
-    # K3: the path's tiny corpus, a full VectorDB capacity, exact ties
-    for nq, N, d, k in ((1, 128, 1024, 112), (16, 65536, 1024, 8),
-                        (16, 65536, 1024, 131)):
-        c = topk_case(nq, N, d, k, g)
-        err, flips = check_topk(c, exact_ids=False)
-        errs["topk_retrieval"] = max(errs["topk_retrieval"], err)
-        say(f"[kernels] topk_retrieval nq={nq} N={N} d={d} k={k}: max|err| "
-            f"{err:.2e} <= 1e-04, {flips} ids swapped inside near-ties | "
-            + fmt(measure(c)))
+    # K2 in bf16 runs flash_fwd_wgmma: every head dim with GQA groups of 1,
+    # 2 and 4, sq not a multiple of 64; the zamba2 engine's shape (32 heads
+    # of 64, b = 1, chunked prefill at offsets up to 896: the key range is
+    # split across blocks and combined), timed; kv_len < sk; kv_len = 0
+    from repro_torch.kernels import flash_attention as k2
+    assert k2.kernel_for(torch.bfloat16) == "flash_fwd_wgmma"
+    assert k2.kernel_for(torch.float32) == "flash_fwd"
+    cases = [(b, sq, 8 * gq, e, causal) for e in (16, 64, 128)
+             for gq in (1, 2, 4)
+             for b, sq, causal in ((2, 77, True), (1, 72, False))]
+    for b, sq, h, e, causal in cases:
+        c = flash_case(b, sq, h, sq + (0 if causal else 28), 8, e,
+                       torch.bfloat16, g, causal=causal)
+        err = check_close(c["kernel"](), c["plain"](), c["tol"],
+                          f"flash wgmma e={e} h={h} sq={sq}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    say(f"[kernels] flash_attention bf16 (flash_fwd_wgmma) e in (16, 64, "
+        f"128) x g in (1, 2, 4), sq 77 causal / 72 not: {len(cases)} cases "
+        f"within 2e-02")
+    for sq, sk, off in ((128, 128, 0), (77, 333, 256), (128, 1024, 896),
+                        (60, 700, 640)):
+        c = flash_case(1, sq, 32, sk, 32, 64, torch.bfloat16, g,
+                       q_offset=off)
+        err = check_close(c["kernel"](), c["plain"](), c["tol"],
+                          f"flash engine sq={sq} q_offset={off}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        plan = k2.plan(1, sq, 32, 32, sk, True, off)
+        say(f"[kernels] flash_attention zamba2 engine b=1 sq={sq} sk={sk} "
+            f"q_offset={off} bf16 (plan {plan}): max|err| {err:.2e} <= "
+            f"2e-02 | " + fmt(measure(c)))
+    for b, sq, h, n, sk, e, off, kv_len, causal in (
+            (2, 16, 8, 4, 64, 64, 24, 40, True),
+            (1, 8, 8, 4, 32, 128, 0, 0, False)):
+        c = flash_case(b, sq, h, sk, n, e, torch.bfloat16, g,
+                       causal=causal, q_offset=off, kv_len=kv_len)
+        got = c["kernel"]()
+        err = check_close(got, c["plain"](), c["tol"],
+                          f"flash kv_len={kv_len}")
+        if kv_len == 0:
+            assert float(got.float().abs().max()) == 0.0, "masked row not 0"
+        say(f"[kernels] flash_attention bf16 kv_len={kv_len} < sk={sk}: "
+            f"max|err| {err:.2e}" + (", every row fully masked: output 0"
+                                     if kv_len == 0 else ""))
+    # K3: every split plan (nq in {1, 16}, N in {128, 5000, 65536}, k in
+    # {8, 112, 131, 256}); the path's tiny corpus and a full VectorDB
+    # capacity timed; exact ties below
+    from repro_torch.kernels import topk_retrieval as k3
+    timed_k3 = {(1, 128, 112), (16, 65536, 8), (16, 65536, 131),
+                (1, 65536, 8)}
+    for nq in (1, 16):
+        for N in (128, 5000, 65536):
+            for k in (8, 112, 131, 256):
+                if k > N:
+                    continue
+                c = topk_case(nq, N, 1024, k, g)
+                err, flips = check_topk(c, exact_ids=False)
+                errs["topk_retrieval"] = max(errs["topk_retrieval"], err)
+                line = (f"[kernels] topk_retrieval nq={nq} N={N} d=1024 "
+                        f"k={k} (plan {k3.split_plan(nq, N, k)}): max|err| "
+                        f"{err:.2e} <= 1e-04, {flips} ids swapped inside "
+                        f"near-ties")
+                if (nq, N, k) in timed_k3:
+                    line += " | " + fmt(measure(c))
+                say(line)
     # multiples of 1/8 with |x| <= 2/8: every score is exact in f32 in any
     # order of summation, so ties are true ties and ids must match exactly
     ints = torch.randint(-2, 3, (4104, 64), generator=g, device="cuda")
     c = topk_case(8, 4096, 64, 256, g, queries=ints[:8].float() / 8,
                   corpus=ints[8:].float() / 8)
     err, _ = check_topk(c, exact_ids=True)
-    say(f"[kernels] topk_retrieval exact scores with ties, k=256: ids equal, "
-        f"max|err| {err:.2e}")
+    ints = torch.randint(-2, 3, (65552, 64), generator=g, device="cuda")
+    for nq, N, k in ((1, 128, 112), (16, 5000, 8), (16, 65536, 131)):
+        c = topk_case(nq, N, 64, k, g, queries=ints[:nq].float() / 8,
+                      corpus=ints[16:16 + N].float() / 8)
+        check_topk(c, exact_ids=True)
+    say(f"[kernels] topk_retrieval exact scores with ties (k=256 of 4096; "
+        f"112 of 128; 8 of 5000; 131 of 65536): ids equal, max|err| "
+        f"{err:.2e}")
     # K5: zamba2-1.2b, 64 heads, P = N = 64, one group: decode (Q = 1), a
     # 77-token last prefill chunk, a 128-token chunk, a 300-token prefill
     # padded to nc = 2 chunks of 256

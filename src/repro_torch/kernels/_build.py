@@ -4,9 +4,10 @@ Each source in ``csrc/`` (one kernel each, plain C interface) is compiled by
 its own ``nvcc`` process for ``sm_90a`` into a shared library under
 ``build/repro_torch_kernels/`` at the repository root, at first use; all
 the compilers start together.  A library's file name carries a hash of its
-source, the shared header and the flags, so an edit rebuilds it.  Libraries
-are loaded with ``ctypes`` with every ``argtypes`` declared; each entry
-point returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
+source, every header it includes and the flags, so an edit rebuilds it.
+Libraries are loaded with ``ctypes`` with every ``argtypes`` declared; each
+entry point returns ``cudaGetLastError()`` and :func:`check` raises on
+non-zero.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine need have no ``nvcc``.
@@ -69,9 +70,27 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes,
+    directly or through another header, in first-seen order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(f.read_text())
+                 if (CSRC / inc).is_file()]
+    return seen
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in sources(name):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -101,16 +120,76 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu:\n{out}")
             continue
-        # ptxas -v: registers and shared memory of each kernel, and any
-        # non-zero spill
-        report = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
-                  if "Used" in ln or re.search(r"\b[1-9]\d* bytes spill", ln)]
         print(f"[build] {n}: {took[n]:.1f}s; ptxas per kernel: "
-              + " | ".join(report), flush=True)
+              + " | ".join(ptxas_report(out)), flush=True)
+        for ln in out.splitlines():
+            if "warning" in ln.lower():
+                print(f"[build] {n}: {ln.strip()}", flush=True)
         os.replace(tmp, lib_path(n))   # atomic: readers never see a partial
     if errors:
         raise RuntimeError("\n".join(errors))
     return took
+
+
+def ptxas_report(out: str) -> List[str]:
+    """``kernel: registers, shared memory[, spills]`` per kernel from
+    ``ptxas -v``."""
+    lines, name, spill = [], "?", ""
+    for ln in out.splitlines():
+        m = (re.search(r"entry function '(\w+)'", ln)
+             or re.search(r"Function properties for (\w+)", ln))
+        if m:
+            name = demangle(m.group(1))
+        if re.search(r"\b[1-9]\d* bytes spill", ln):
+            spill = ", " + ln.split(":", 1)[-1].strip()
+        if "Used" in ln:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}{spill}")
+            spill = ""
+    return lines
+
+
+def demangle(mangled: str) -> str:
+    """A kernel's mangled name cut to its name and template arguments:
+    ``_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi128EEEv...`` ->
+    ``flash_fwd_wgmma<128>``."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    s, names = mangled[3 if mangled.startswith("_ZN") else 2:], []
+    while s[:1].isdigit():
+        digits = re.match(r"\d+", s).group()
+        n = int(digits)
+        names.append(s[len(digits):len(digits) + n])
+        s = s[len(digits) + n:]
+    if not names:
+        return mangled
+    if not s.startswith("I"):
+        return names[-1]
+    tpl = s[1:s.find("EE") + 1] if "EE" in s else s[1:]
+    args = (["f32"] if tpl.startswith("f") else
+            ["bf16"] if "__nv_bfloat16" in tpl else [])
+    args += re.findall(r"Li(\d+)E", tpl)
+    return f"{names[-1]}<{','.join(args)}>"
+
+
+def sass_counts(name: str, opcodes: Sequence[str]) -> Dict[str, Dict]:
+    """{kernel: {opcode: count}} of the built library's machine code
+    (``cuobjdump -sass``): shows which instructions a kernel really
+    issues, e.g. HGMMA (wgmma), UTMALDG (a TMA load), LDGSTS (cp.async)."""
+    exe = Path(nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(exe), "-sass", str(lib_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, Dict] = {}
+    cur = None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            cur = counts.setdefault(demangle(m.group(1)),
+                                    {op: 0 for op in opcodes})
+        elif cur is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", ln):
+                    cur[op] += 1
+    return counts
 
 
 def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

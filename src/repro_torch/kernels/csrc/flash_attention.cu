@@ -1,28 +1,62 @@
-// K2 — GQA flash-attention forward (FA2-style online softmax).
+// K2 — GQA flash-attention forward, two kernels chosen by input type.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (pallas_call at flash_attention.py:87), and adds what the serving path
 // needs that the Pallas kernel lacks: a query position offset (prefill into
 // a cache at cache_idx > 0) and a valid KV length.
 //
-// What bounds it on the H100: operations.  A (sq x sk) tile pair costs
-// 4*e flops per score against 2*e*2 bytes per K/V row, so at the path's
-// sq >= 16 it sits above the bytes line; the card's 989 TFLOP/s bf16 peak
-// is reached only through wgmma.  This first version is the simple, right
-// one: CUDA-core f32 FMAs over tiles staged in shared memory.  What its
-// design does about the bound: every K/V tile is loaded once per block and
-// reused by all BQ query rows; scores never leave shared memory; causal
-// blocks stop at the last key any of their rows can see.  wgmma and TMA
-// are later work.
+// What bounds it on the H100: device-memory bytes at every main-path shape
+// (q, the visible K/V rows and the output once: 4*e flops per visible
+// (query, key) pair against 4*e bytes per K/V row, with sq <= 192 query
+// rows per kv head far under the ~295 flop/byte ridge of bf16), and in
+// practice latency: the path's calls move 0.1-8 MB, a few microseconds of
+// bytes, so what costs is how long one block's chain of key tiles takes
+// and how many SMs the grid keeps busy.
+//
+// bf16: flash_fwd_wgmma, for Hopper.
+//  * Both products on the tensor cores: S = Q·Kᵀ as wgmma m64n64k16 with Q
+//    and K in shared memory (K-major), O += P·V as wgmma m64nEk16 with P
+//    from registers (the S accumulator rounded to bf16 in place: the
+//    reference's cast of the unnormalised probabilities to V's dtype) and V
+//    from shared memory, MN-major (the descriptor's transpose bit).  One
+//    warpgroup owns a 64-row M tile; the online softmax runs on the
+//    accumulator fragments in registers, masking before exp.
+//  * The g = h/n query heads of a kv head are packed into the M tile, rows
+//    (query position, head of the group), so each K/V tile is read once
+//    for all g heads; the Q box of the tensor map is (e, g heads, 64/g
+//    positions), which lands in exactly that row order.
+//  * K/V tiles of 64 keys arrive by TMA into a ring of 2 (e = 128) or 3
+//    stages, in the swizzled layout wgmma reads (128-byte swizzle, or 32
+//    bytes at e = 16; the tensor map and the descriptors name the same
+//    one).  An mbarrier per stage counts the bytes; the next tiles load
+//    while the current one is multiplied.  The tensor maps are encoded in
+//    the C entry point over the strided (b, S, n, e) views, so a cache
+//    prefix is read in place; cuTensorMapEncodeTiled comes through the
+//    runtime's driver entry point, so the library links no -lcuda.
+//  * When b·n·⌈sq·g/64⌉ blocks would leave most of the 132 SMs idle (the
+//    zamba2 engine: 32 heads, b = 1), the key range is split across blocks
+//    (`chunk` keys each, planned by kernels/flash_attention.py::plan); each
+//    split writes its partial (O, m, l) in f32 and flash_combine folds
+//    them.  Causal blocks stop at the last key any of their rows can see.
+// f32: flash_fwd, CUDA-core f32 FMAs over tiles staged in shared memory
+// (wgmma has no full-f32 mode, and TF32 would break the 2e-5 tolerance
+// the reduced f32 models are held to).
 //
 // Semantics follow the reference `mha`: scores = q.k / sqrt(e) in f32,
 // causal mask q_offset + qpos >= kpos, keys kpos >= kv_len masked, the
 // unnormalised probabilities are rounded to V's dtype before P.V, f32
 // accumulation, fully masked rows output 0.  q-head hh reads kv head
 // hh / (h/n), the (b,sq,n,g,e) grouping of layers._gqa_scores.
+#include <climits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 32;
 constexpr int kBK = 32;
@@ -171,31 +205,354 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma with a TMA-fed K/V ring
+// ---------------------------------------------------------------------------
+
+constexpr int kM = 64;    // rows of the M tile: (query position, head)
+constexpr int kN = 64;    // keys per K/V tile
+constexpr int kWG = 128;  // one warpgroup
+
+template <int E>
+struct Tile {
+  static constexpr int kAtom = E < 64 ? E : 64;  // elements per swizzle row
+  static constexpr int kSw = 2 * kAtom;          // swizzle bytes: 32 or 128
+  static constexpr int kAtoms = E / kAtom;
+  static constexpr uint64_t kLayout =
+      kSw == 128 ? repro::kSwizzle128 : repro::kSwizzle32;
+  static constexpr int kBytes = kN * E * 2;  // one Q, K or V tile
+  static constexpr int kStages = E == 128 ? 2 : 3;
+  static constexpr int kAlign = 1024;        // the 128-byte swizzle period
+  static constexpr size_t kSmem =
+      kAlign + (size_t)kBytes * (1 + 2 * kStages) + 8 * (kStages + 1);
+  static_assert(kM == kN, "Q and K/V tiles share one size");
+  static_assert(kSw == 32 || kSw == 128, "e must be 16, 64 or 128");
+};
+
+// Shared memory: the Q tile, then kStages (K, V) tile pairs, each tile as
+// kAtoms swizzle atoms of 64 rows x kSw bytes; then the mbarriers (one per
+// stage, one for Q).  Grid (mtiles * nsplit, n, b): block (mt, split)
+// takes query positions [mt*per_tile, +per_tile) of the g heads of kv head
+// blockIdx.y, over keys [split*chunk, +chunk).
+template <int E>
+__global__ void __launch_bounds__(kWG, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+                float* __restrict__ part_ml, int b, int sq, int h, int n,
+                int kv_len, int q_offset, int causal, int per_tile,
+                int chunk, int nsplit) {
+  using TL = Tile<E>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((TL::kAlign - (repro::smem_u32(smem_raw) &
+                                             (TL::kAlign - 1))) &
+                              (TL::kAlign - 1));
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(base + TL::kBytes * (1 + 2 * TL::kStages));
+  uint64_t* qbar = bars + TL::kStages;
+  auto k_tile = [&](int s) { return base + TL::kBytes * (1 + 2 * s); };
+  auto v_tile = [&](int s) { return base + TL::kBytes * (2 + 2 * s); };
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int split = blockIdx.x % nsplit, mt = blockIdx.x / nsplit;
+  const int kvh = blockIdx.y, bi = blockIdx.z;
+  const int g = h / n;
+  const int p0 = mt * per_tile;
+  const int rows = per_tile * g;  // rows of the tile that hold a query
+  int kend = kv_len;              // one past the last key any row sees
+  if (causal) kend = min(kend, q_offset + min(p0 + per_tile, sq));
+  const int k_lo = split * chunk;
+  const int k_hi = min(kend, k_lo + chunk);
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + kN - 1) / kN : 0;
+
+  auto load_kv = [&](int j) {  // one thread: tile j into stage j % kStages
+    const int s = j % TL::kStages, key0 = k_lo + j * kN;
+    repro::mbar_arrive_expect_tx(&bars[s], 2 * TL::kBytes);
+#pragma unroll
+    for (int a = 0; a < TL::kAtoms; ++a) {
+      repro::tma_load_4d(k_tile(s) + a * kN * TL::kSw, &kmap, &bars[s],
+                         a * TL::kAtom, kvh, key0, bi);
+      repro::tma_load_4d(v_tile(s) + a * kN * TL::kSw, &vmap, &bars[s],
+                         a * TL::kAtom, kvh, key0, bi);
+    }
+  };
+  if (t == 0) {
+    for (int s = 0; s <= TL::kStages; ++s) repro::mbar_init(&bars[s], 1);
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0 && ntiles > 0) {
+    repro::mbar_arrive_expect_tx(qbar, rows * E * 2);
+#pragma unroll
+    for (int a = 0; a < TL::kAtoms; ++a)
+      repro::tma_load_4d(base + a * kM * TL::kSw, &qmap, qbar,
+                         a * TL::kAtom, kvh * g, p0, bi);
+    for (int j = 0; j < min(TL::kStages, ntiles); ++j) load_kv(j);
+  }
+
+  // this thread's two rows of the tile (the wgmma fragment layout: warp w
+  // holds rows 16w + lane/4 and + 8) and the keys each may see
+  const int r0 = warp * 16 + (lane >> 2);
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i, pos = p0 + r / g;
+    lim[i] = (r < rows && pos < sq)
+                 ? (causal ? min(k_hi, q_offset + pos + 1) : k_hi)
+                 : INT_MIN;
+  }
+  // scores in base-2 units: s * log2(e) / sqrt(E), so that exp(s / sqrt(E)
+  // - m) is one exp2 of the scaled difference (m, too, is kept scaled)
+  const float scale = 1.4426950408889634f / sqrtf((float)E);
+  float o[E / 2];  // the 64 x E accumulator over the warpgroup
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
+
+  const uint32_t q_addr = repro::smem_u32(base);
+  if (ntiles > 0) repro::mbar_wait(qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % TL::kStages;
+    repro::mbar_wait(&bars[s], (j / TL::kStages) & 1);
+    const uint32_t k_addr = repro::smem_u32(k_tile(s));
+    const uint32_t v_addr = repro::smem_u32(v_tile(s));
+
+    // S = Q Kᵀ: E/16 steps of 16 features, 32 bytes into a swizzle row
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < E / 16; ++kk) {
+      const int a = kk * 16 / TL::kAtom, off = (kk * 16 % TL::kAtom) * 2;
+      const uint64_t da = repro::wgmma_desc(
+          q_addr + a * kM * TL::kSw + off, 16, 8 * TL::kSw, TL::kLayout);
+      const uint64_t db = repro::wgmma_desc(
+          k_addr + a * kN * TL::kSw + off, 16, 8 * TL::kSw, TL::kLayout);
+      repro::wgmma_m64n64k16_ss(sc, da, db, kk > 0);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(sc);
+
+    // online softmax on the fragments: register 4c + 2i + jj holds row
+    // r0 + 8i, key key0 + 8c + 2(lane % 4) + jj; a row's 64 keys are
+    // spread over the 4 lanes of a quad
+    const int key0 = k_lo + j * kN + 2 * (lane & 3);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int x = 4 * c + 2 * i + jj;
+          const float v =
+              key0 + 8 * c + jj < lim[i] ? sc[x] * scale : -CUDART_INF_F;
+          sc[x] = v;
+          mx = fmaxf(mx, v);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[i], mx);
+      // a row with no visible key so far keeps p = 0 and alpha = 0
+      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[i] = exp2f(m_run[i] - m_use);
+      m_run[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int x = 4 * c + 2 * i + jj;
+          sc[x] = exp2f(sc[x] - m_use);
+          sum += sc[x];
+        }
+      }
+      l_run[i] = l_run[i] * alpha[i] + sum;  // this thread's columns only
+    }
+#pragma unroll
+    for (int c = 0; c < E / 8; ++c) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) o[4 * c + x] *= alpha[x >> 1];
+    }
+    // P as the A fragments of four k16 steps (16 keys each): the S
+    // accumulator layout is the A-fragment layout
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* lo = sc + 8 * kk;
+      pa[kk][0] = repro::pack_bf16(lo[0], lo[1]);
+      pa[kk][1] = repro::pack_bf16(lo[2], lo[3]);
+      pa[kk][2] = repro::pack_bf16(lo[4], lo[5]);
+      pa[kk][3] = repro::pack_bf16(lo[6], lo[7]);
+    }
+    // O += P V: V is (key, e), MN-major; 16 keys are 16 swizzle rows
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db =
+          repro::wgmma_desc(v_addr + kk * 16 * TL::kSw, kN * TL::kSw,
+                            8 * TL::kSw, TL::kLayout);
+      repro::wgmma_m64nNk16_rs(o, pa[kk], db);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(o);
+    __syncthreads();  // every wgmma reading stage s has completed
+    if (t == 0 && j + TL::kStages < ntiles) load_kv(j + TL::kStages);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = r0 + 8 * i, pos = p0 + r / g;
+    if (r >= rows || pos >= sq) continue;
+    const long long row = ((long long)bi * sq + pos) * h + kvh * g + r % g;
+    const int col = 2 * (lane & 3);
+    if (nsplit == 1) {
+      __nv_bfloat16* orow = out + row * E + col;
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c) {
+        const float a0 = o[4 * c + 2 * i], a1 = o[4 * c + 2 * i + 1];
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+            __floats2bfloat162_rn(l > 0.f ? a0 / l : 0.f,
+                                  l > 0.f ? a1 / l : 0.f);
+      }
+    } else {
+      const long long slot = (long long)split * b * sq * h + row;
+      float* po = part_o + slot * E + col;
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c)
+        *reinterpret_cast<float2*>(po + 8 * c) =
+            make_float2(o[4 * c + 2 * i], o[4 * c + 2 * i + 1]);
+      if ((lane & 3) == 0) {
+        part_ml[slot * 2] = m_run[i];
+        part_ml[slot * 2 + 1] = l;
+      }
+    }
+  }
+}
+
+// Folds the nsplit partial (O, m, l) of flash_fwd_wgmma (m in base-2
+// units): a block of kWG threads takes kWG / E output rows (b, position,
+// head), thread t column t % E of row t / E.  A split that saw no key of
+// the row has l = 0 and is skipped; a row with no visible key at all
+// outputs 0.
+template <int E>
+__global__ void __launch_bounds__(kWG)
+flash_combine(const float* __restrict__ part_o,
+              const float* __restrict__ part_ml,
+              __nv_bfloat16* __restrict__ out, long long rows_total,
+              int nsplit) {
+  const long long row = (long long)blockIdx.x * (kWG / E) + threadIdx.x / E;
+  const int j = threadIdx.x % E;
+  if (row >= rows_total) return;
+  float m = -CUDART_INF_F;
+  for (int s = 0; s < nsplit; ++s) {
+    const long long slot = s * rows_total + row;
+    if (part_ml[slot * 2 + 1] > 0.f) m = fmaxf(m, part_ml[slot * 2]);
+  }
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < nsplit; ++s) {
+    const long long slot = s * rows_total + row;
+    const float ls = part_ml[slot * 2 + 1];
+    if (ls > 0.f) {
+      const float w = exp2f(part_ml[slot * 2] - m);
+      l += ls * w;
+      acc += part_o[slot * E + j] * w;
+    }
+  }
+  out[row * E + j] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+}
+
+template <int E>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 void* part_o, void* part_ml, int b, int sq, int h, int n,
+                 int sk, int kv_len, int q_offset, int causal, long long qsb,
+                 long long qss, long long qsh, long long ksb, long long kss,
+                 long long ksn, long long vsb, long long vss, long long vsn,
+                 int per_tile, int chunk, int nsplit, cudaStream_t stream) {
+  using TL = Tile<E>;
+  const int g = h / n;
+  if (per_tile < 1 || per_tile * g > kM || nsplit < 1 || chunk < 1 ||
+      chunk % kN != 0 || sk < 1)
+    return cudaErrorInvalidValue;
+  const CUtensorMapSwizzle sw =
+      TL::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap qm, km, vm;
+  int err = repro::make_map_4d(&qm, q, {E, h, sq, b}, {1, qsh, qss, qsb},
+                               TL::kAtom, g, per_tile, sw);
+  if (err == 0)
+    err = repro::make_map_4d(&km, k, {E, n, sk, b}, {1, ksn, kss, ksb},
+                             TL::kAtom, 1, kN, sw);
+  if (err == 0)
+    err = repro::make_map_4d(&vm, v, {E, n, sk, b}, {1, vsn, vss, vsb},
+                             TL::kAtom, 1, kN, sw);
+  if (err != 0) return err;
+  // once per instantiation (a thread-safe static), not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TL::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const int mtiles = (sq + per_tile - 1) / per_tile;
+  flash_fwd_wgmma<E><<<dim3(mtiles * nsplit, n, b), kWG, TL::kSmem,
+                       stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), b, sq, h, n,
+      kv_len, q_offset, causal, per_tile, chunk, nsplit);
+  cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || nsplit == 1) return e2;
+  const long long rows_total = (long long)b * sq * h;
+  flash_combine<E><<<(rows_total + kWG / E - 1) / (kWG / E), kWG, 0,
+                     stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<__nv_bfloat16*>(out), rows_total, nsplit);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q (b,sq,h,e), k/v (b,sk,n,e): unit stride on e, element strides for the
 // other axes (a cache prefix view is read in place); out (b,sq,h,e)
-// contiguous in q's dtype.  kv_len <= sk keys are visible.
+// contiguous in q's dtype.  kv_len <= sk keys are visible.  bf16 runs
+// flash_fwd_wgmma with the plan (per_tile, chunk, nsplit) of
+// flash_attention.py::plan; its strides must be multiples of 8 elements
+// and its pointers 16-byte aligned (TMA), and part_o (nsplit,b,sq,h,e) /
+// part_ml (nsplit,b,sq,h,2) are f32 scratch when nsplit > 1.  f32 runs
+// flash_fwd and ignores the plan and the scratch.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int dtype, int b,
-    int sq, int h, int n, int e, int kv_len, int q_offset, int causal,
-    long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksn, long long vsb, long long vss,
-    long long vsn, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* part_o,
+    void* part_ml, int dtype, int b, int sq, int h, int n, int sk, int e,
+    int kv_len, int q_offset, int causal, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksn,
+    long long vsb, long long vss, long long vsn, int per_tile, int chunk,
+    int nsplit, void* stream) {
   if (h % n != 0) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH(T, E)                                                 \
-  return launch<T, E>(q, k, v, out, b, sq, h, n, kv_len, q_offset, causal, \
-                      qsb, qss, qsh, ksb, kss, ksn, vsb, vss, vsn, st)
-  if (dtype == repro::kF32) {
-    if (e == 16) REPRO_FLASH(float, 16);
-    if (e == 64) REPRO_FLASH(float, 64);
-    if (e == 128) REPRO_FLASH(float, 128);
-  } else if (dtype == repro::kBF16) {
-    if (e == 16) REPRO_FLASH(__nv_bfloat16, 16);
-    if (e == 64) REPRO_FLASH(__nv_bfloat16, 64);
-    if (e == 128) REPRO_FLASH(__nv_bfloat16, 128);
-  }
+  if (dtype == repro::kBF16) {
+#define REPRO_WGMMA(E)                                                     \
+  return launch_wgmma<E>(q, k, v, out, part_o, part_ml, b, sq, h, n, sk,   \
+                         kv_len, q_offset, causal, qsb, qss, qsh, ksb, kss, \
+                         ksn, vsb, vss, vsn, per_tile, chunk, nsplit, st)
+    if (e == 16) REPRO_WGMMA(16);
+    if (e == 64) REPRO_WGMMA(64);
+    if (e == 128) REPRO_WGMMA(128);
+#undef REPRO_WGMMA
+  } else if (dtype == repro::kF32) {
+#define REPRO_FLASH(E)                                                       \
+  return launch<float, E>(q, k, v, out, b, sq, h, n, kv_len, q_offset,       \
+                          causal, qsb, qss, qsh, ksb, kss, ksn, vsb, vss, vsn, \
+                          st)
+    if (e == 16) REPRO_FLASH(16);
+    if (e == 64) REPRO_FLASH(64);
+    if (e == 128) REPRO_FLASH(128);
 #undef REPRO_FLASH
+  }
   return cudaErrorInvalidValue;
 }

@@ -6,6 +6,11 @@ the two arguments prefill into a cache needs: ``q_offset`` (query ``i`` sits
 at position ``q_offset + i``) and ``kv_len`` (keys at ``>= kv_len`` are
 masked).  The causal mask is ``q_offset + qpos >= kpos``.  k/v may be any
 view with a unit-stride head dim, such as the prefix ``cache[:, :L]``.
+
+The input type picks the kernel (:func:`kernel_for`): bf16 runs
+``flash_fwd_wgmma`` (tensor cores, TMA-fed K/V tiles, the GQA group packed
+into 64-row tiles, the key range split across blocks by :func:`plan`), f32
+runs ``flash_fwd`` (CUDA-core FMAs: wgmma has no full-f32 mode).
 """
 from __future__ import annotations
 
@@ -17,7 +22,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import I, L, P, require
 
 HEAD_DIMS = (16, 64, 128)
-_SIG = {"repro_flash_attention": [P] * 4 + [I] * 9 + [L] * 9 + [P]}
+M_TILE = 64             # rows of a wgmma tile: (query position, head)
+KEY_TILE = 64           # keys per K/V tile
+SMS = 132               # streaming multiprocessors of an H100 SXM
+MIN_SPLIT_TILES = 2     # key tiles a split must have to be worth a combine
+_SIG = {"repro_flash_attention": [P] * 6 + [I] * 10 + [L] * 9 + [I] * 3
+        + [P]}
 
 launches = _build.LaunchCounter()
 
@@ -47,15 +57,85 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"unsupported")
     require(q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1,
             "flash_attention: inputs must be unit-stride on the head dim")
+    require(sk >= 1, "flash_attention: no keys (sk = 0)")
     out = torch.empty((b, sq, h, e), dtype=q.dtype, device=q.device)
+    per_tile = chunk = nsplit = 0
+    part_o = part_ml = out
+    if kernel_for(q.dtype) == "flash_fwd_wgmma":
+        q, k, v = (t if tma_ready(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+        per_tile, _, chunk, nsplit = plan(b, sq, h, n, kv_len, causal,
+                                          q_offset)
+        if nsplit > 1:
+            part_o = torch.empty((nsplit, b, sq, h, e), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((nsplit, b, sq, h, 2),
+                                  dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention", _SIG)
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], b, sq, h, n, e, kv_len, q_offset,
-        int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        _build.stream_ptr(q))
+        part_o.data_ptr(), part_ml.data_ptr(), _build.DTYPE_CODES[q.dtype],
+        b, sq, h, n, sk, e, kv_len, q_offset, int(causal),
+        *tma_strides(q), *tma_strides(k), *tma_strides(v), per_tile, chunk,
+        nsplit, _build.stream_ptr(q))
     _build.check(lib, rc, "flash_attention")
     launches.add()
+    return out
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """The ``__global__`` that runs inputs of ``dtype``: a choice by type
+    (wgmma has no full-f32 mode, and TF32 would break f32's 2e-5)."""
+    if dtype == torch.bfloat16:
+        return "flash_fwd_wgmma"
+    if dtype == torch.float32:
+        return "flash_fwd"
+    raise ValueError(f"flash_attention: no kernel for {dtype}")
+
+
+def plan(b: int, sq: int, h: int, n: int, kv_len: int, causal: bool,
+         q_offset: int):
+    """-> (per_tile, mtiles, chunk, nsplit) of ``flash_fwd_wgmma``: query
+    positions per 64-row tile (the g = h/n heads of a kv head share it),
+    tiles per (b, kv head), keys per split (a multiple of KEY_TILE) and
+    the number of splits.  The key range is split only when the
+    b·n·mtiles blocks would leave SMs idle, into at most one split per
+    MIN_SPLIT_TILES key tiles, so each split's partial is worth its
+    combine."""
+    g = h // n
+    require(1 <= g <= M_TILE, f"flash_attention: {g} query heads per kv "
+            f"head; the wgmma kernel packs at most {M_TILE}")
+    per_tile = M_TILE // g
+    mtiles = -(-sq // per_tile)
+    kend = min(kv_len, q_offset + sq) if causal else kv_len
+    key_tiles = -(-kend // KEY_TILE)
+    base = b * n * mtiles
+    nsplit = max(1, min(-(-SMS // base), key_tiles // MIN_SPLIT_TILES))
+    chunk_tiles = max(1, -(-key_tiles // nsplit))
+    nsplit = max(1, -(-key_tiles // chunk_tiles))
+    return per_tile, mtiles, chunk_tiles * KEY_TILE, nsplit
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """A TMA tensor map takes the view as it is: a 16-byte-aligned base
+    and strides (of the axes longer than 1) that are multiples of 16
+    bytes.  The path's tensors and cache prefixes all are; any other view
+    is copied first."""
+    return (t.data_ptr() % 16 == 0 and
+            all(st % 8 == 0 for st, sz in zip(t.stride()[:3], t.shape[:3])
+                if sz > 1))
+
+
+def tma_strides(t: torch.Tensor):
+    """Element strides of axes 0..2, an axis of length 1 given the stride
+    it would have in a contiguous layout (the tensor map needs a valid
+    stride even where the coordinate is always 0)."""
+    out = list(t.stride()[:3])
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            out[i] = (out[i + 1] * t.shape[i + 1] if i < 2
+                      else t.shape[3])
     return out
 
 

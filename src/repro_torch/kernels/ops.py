@@ -42,7 +42,8 @@ KERNELS = (
            "src/repro/kernels/decode_attention.py:25",
            ("decode_split", "decode_combine")),
     Kernel("flash_attention", _flash,
-           "src/repro/kernels/flash_attention.py:26", ("flash_fwd",)),
+           "src/repro/kernels/flash_attention.py:26",
+           ("flash_fwd_wgmma", "flash_combine", "flash_fwd")),
     Kernel("topk_retrieval", _topk,
            "src/repro/kernels/topk_retrieval.py:22",
            ("topk_partial", "topk_merge")),

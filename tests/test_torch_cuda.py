@@ -8,9 +8,13 @@ the CUDA toolkit; ``tests/conftest.py`` imports JAX, so there run
 
 Tolerances: f32 2e-5, bf16 2e-2 (the kernels sum in another order and
 round probabilities to bf16 at another point than ``mha``), top-k values
-1e-4 with ids exactly equal, the int8 product exactly equal, the SSD
-chunk 2e-4 (f32 outputs from sums of up to 256 products in another
-order).  TF32 is off for the plain versions' products.
+1e-4 with ids exactly equal (on random data over every split plan, ids
+may differ only inside near-ties, exact scores within 1e-5: the kernel
+sums in another order than the plain product), the int8 product exactly
+equal, the SSD chunk 2e-4 (f32 outputs from sums of up to 256 products
+in another order).  TF32 is off for the plain versions' products.  bf16
+attention runs the wgmma kernel (``flash_fwd_wgmma``), f32 the CUDA-core
+one.
 """
 import pytest
 
@@ -80,6 +84,104 @@ def test_flash_kernel_matches_plain(cuda, sq, sk, q_offset, causal, dtype):
                                    q_offset=q_offset)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+# bf16 runs flash_fwd_wgmma: (b, sq, h, n, sk, e, q_offset, kv_len, causal)
+WGMMA_CASES = [
+    # every head dim with GQA groups of 1, 2 and 4 (h = 8g, n = 8); sq not
+    # a multiple of 64, causal and not
+    *[(2, 77, 8 * g, 8, 77, e, 0, None, True)
+      for e in (16, 64, 128) for g in (1, 2, 4)],
+    *[(1, 72, 8 * g, 8, 100, e, 0, None, False)
+      for e in (16, 64, 128) for g in (1, 2, 4)],
+    (2, 60, 16, 8, 60, 128, 0, None, True),     # qwen3 embed/rerank, g = 2
+    (1, 16, 32, 8, 16, 128, 0, None, True),     # qwen3-4b chat prefill
+    (2, 192, 16, 8, 192, 128, 0, None, True),
+    (1, 16, 16, 16, 16, 64, 0, None, True),     # qwen1.5-0.5b draft
+    # the zamba2 engine: 32 heads of 64, MHA, b = 1, chunked prefill into a
+    # 1024-slot cache (key range split across blocks, then combined)
+    (1, 128, 32, 32, 128, 64, 0, None, True),
+    (1, 77, 32, 32, 333, 64, 256, None, True),
+    (1, 128, 32, 32, 1024, 64, 896, None, True),
+    (1, 60, 32, 32, 700, 64, 640, None, True),
+    # kv_len < sk; kv_len 0 (every row fully masked: outputs 0)
+    (2, 16, 8, 4, 64, 64, 24, 40, True),
+    (1, 8, 8, 4, 32, 128, 0, 0, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,n,sk,e,q_offset,kv_len,causal",
+                         WGMMA_CASES)
+def test_flash_wgmma_kernel_matches_plain(cuda, b, sq, h, n, sk, e, q_offset,
+                                          kv_len, causal):
+    """bf16 through flash_fwd_wgmma, k/v read in place as the prefix of a
+    longer cache (as ``layers.attention`` passes them)."""
+    from repro_torch.kernels import flash_attention as k2
+    rng = np.random.default_rng(25)
+    q = _dev(rng, (b, sq, h, e), "bfloat16", cuda)
+    kc, vc = (_dev(rng, (b, sk + 64, n, e), "bfloat16", cuda)
+              for _ in range(2))
+    k, v = kc[:, :sk], vc[:, :sk]
+    assert k2.kernel_for(q.dtype) == "flash_fwd_wgmma"
+    got = k2.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len)
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   q_offset=q_offset, kv_len=kv_len)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("bfloat16"))
+    if kv_len == 0:
+        assert float(got.float().abs().max()) == 0.0
+
+
+def _near_tie_ids(q, c, gi, wi):
+    """Ids may differ only where the two entries' exact scores (float64)
+    lie within 1e-5: the kernel sums in another order than the plain
+    product."""
+    diff = gi != wi
+    if bool(diff.any()):
+        s = q.double() @ c.double().T
+        gap = (s.gather(1, gi.long()) - s.gather(1, wi.long())).abs()[diff]
+        assert float(gap.max()) <= 1e-5, f"ids differ by {gap.max()}"
+    assert all(len(set(r)) == len(r) for r in gi.tolist()), "duplicate ids"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,N,k", [
+    (nq, N, k) for nq in (1, 16) for N in (128, 5000, 65536)
+    for k in (8, 112, 131, 256) if k <= N])
+def test_topk_kernel_every_plan(cuda, nq, N, k):
+    """Every split plan the path and the check shapes give (one row per
+    warp at N = 128, selection with a threshold past k rows per split),
+    d = 1024; values to 1e-4, ids equal up to near-ties."""
+    from repro_torch.kernels import topk_retrieval as k3
+    rng = np.random.default_rng(26)
+    q = _dev(rng, (nq, 1024), "float32", cuda)
+    c = _dev(rng, (N, 1024), "float32", cuda)
+    gv, gi = k3.topk_retrieval(q, c, k)
+    wv, wi = ref.topk_retrieval_ref(q, c, k)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(gv.cpu().numpy(), wv.cpu().numpy(), atol=1e-4)
+    _near_tie_ids(q, c, gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,N,k", [(1, 128, 112), (16, 5000, 8),
+                                    (8, 4096, 256), (16, 65536, 131)])
+def test_topk_kernel_exact_scores_ids_equal(cuda, nq, N, k):
+    """Multiples of 1/8 with |x| <= 2/8 make every score exact in f32 in
+    any order of summation, so ties are true ties and the ids must equal
+    the plain version's (ties to the lower index)."""
+    from repro_torch.kernels import topk_retrieval as k3
+    rng = np.random.default_rng(27)
+    ints = rng.integers(-2, 3, (nq + N, 64)).astype(np.float32) / 8
+    x = torch.from_numpy(ints).to(cuda)
+    q, c = x[:nq].contiguous(), x[nq:].contiguous()
+    gv, gi = k3.topk_retrieval(q, c, k)
+    wv, wi = ref.topk_retrieval_ref(q, c, k)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(gv.cpu().numpy(), wv.cpu().numpy())
+    np.testing.assert_array_equal(gi.cpu().numpy(), wi.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -280,3 +280,143 @@ def test_ssd_plain_is_finite_at_zamba2_decays():
     dA = (dt * -16.0).astype(np.float32)
     y, S = ops.ssd_chunk(*map(torch.from_numpy, (x, dt, B, C, dA)))
     assert bool(y.isfinite().all()) and bool(S.isfinite().all())
+
+
+# -- host-side plans of the redesigned K2 and K3 (pure Python) ---------------
+
+def test_flash_kernel_is_chosen_by_dtype():
+    """bf16 runs the wgmma kernel, f32 the CUDA-core one (wgmma has no
+    full-f32 mode); any other type has no kernel."""
+    from repro_torch.kernels import flash_attention as k2
+    assert k2.kernel_for(torch.bfloat16) == "flash_fwd_wgmma"
+    assert k2.kernel_for(torch.float32) == "flash_fwd"
+    with pytest.raises(ValueError, match="no kernel"):
+        k2.kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("b,sq,h,n,kv_len,q_offset,want", [
+    # the zamba2 engine: 32 heads, b = 1; a late prefill chunk is split
+    (1, 128, 32, 32, 1024, 896, (64, 2, 384, 3)),
+    (1, 77, 32, 32, 333, 256, (64, 2, 128, 3)),
+    (1, 128, 32, 32, 128, 0, (64, 2, 128, 1)),   # 2 key tiles: no split
+    # the RAG path: the GQA group packed into the 64-row tile
+    (8, 128, 16, 8, 128, 0, (32, 4, 128, 1)),    # qwen3 embed/rerank, g=2
+    (1, 16, 32, 8, 16, 0, (16, 1, 64, 1)),       # qwen3-4b chat, g=4
+    (1, 16, 16, 16, 16, 0, (64, 1, 64, 1)),      # qwen1.5-0.5b draft, g=1
+])
+def test_flash_plan_at_path_shapes(b, sq, h, n, kv_len, q_offset, want):
+    from repro_torch.kernels import flash_attention as k2
+    plan = k2.plan(b, sq, h, n, kv_len, True, q_offset)
+    assert plan == want
+    per_tile, mtiles, chunk, nsplit = plan
+    assert per_tile * (h // n) <= k2.M_TILE
+    assert mtiles * per_tile >= sq > (mtiles - 1) * per_tile
+    kend = min(kv_len, q_offset + sq)
+    assert chunk % k2.KEY_TILE == 0
+    assert (nsplit - 1) * chunk < kend <= nsplit * chunk
+    if nsplit > 1:     # split only to fill SMs that would sit idle
+        assert b * n * mtiles < k2.SMS
+        assert chunk >= k2.MIN_SPLIT_TILES * k2.KEY_TILE
+
+
+def test_flash_plan_refuses_groups_wider_than_a_tile():
+    from repro_torch.kernels import flash_attention as k2
+    with pytest.raises(ValueError, match="packs at most"):
+        k2.plan(1, 16, 128, 1, 16, True, 0)
+
+
+def test_flash_tma_views():
+    """A cache prefix view is read in place by the tensor map; a view whose
+    strides are not 16-byte multiples is not; an axis of length 1 gets the
+    stride a contiguous layout would give it."""
+    from repro_torch.kernels import flash_attention as k2
+    cache = torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16)
+    assert k2.tma_ready(cache[:, :40])
+    assert k2.tma_strides(cache[:, :40]) == [64 * 8 * 128, 8 * 128, 128]
+    odd = torch.zeros(2, 5, 3, 20, dtype=torch.bfloat16)[..., :16]
+    assert not k2.tma_ready(odd)
+    one = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16)
+    assert k2.tma_strides(one) == [4 * 64, 4 * 64, 64]
+
+
+@pytest.mark.parametrize("nq,N,k", [
+    (1, 128, 112), (1, 128, 8), (16, 128, 112), (1, 5000, 131),
+    (16, 5000, 8), (1, 65536, 8), (1, 65536, 131), (16, 65536, 8),
+    (16, 65536, 131), (16, 65536, 256), (40, 4096, 16)])
+def test_topk_plan_covers_the_corpus_and_fills_the_card(nq, N, k):
+    from repro_torch.kernels import topk_retrieval as k3
+    qt, R, rows_per, nsplit, kk, per_lane, sf, stages, mwarps = \
+        k3.split_plan(nq, N, k)
+    assert qt == min(16, 1 << (nq - 1).bit_length())     # sized to nq
+    assert rows_per % R == 0 and sf % (4 * 256) == 0 and sf // R >= 4
+    assert (nsplit - 1) * rows_per < N <= nsplit * rows_per
+    assert kk == (k if rows_per > k else rows_per)
+    assert 32 * per_lane >= k > 16 * per_lane or per_lane == 1
+    # one wave of at most TARGET_BLOCKS blocks (two per SM), at least half
+    # of that as far as whole tiles, and on a large corpus splits of more
+    # than k rows, allow
+    least = R
+    if N >= k3.LARGE_CORPUS * (k + 1):
+        least = R * -(-(k + 1) // R)
+    blocks = nsplit * -(-nq // qt)
+    assert blocks <= k3.TARGET_BLOCKS * -(-nq // qt)
+    assert 2 * blocks >= min(k3.TARGET_BLOCKS, N // least)
+    assert stages in (2, 3)
+    assert k3.smem_bytes(qt, R, per_lane, rows_per > k, sf, stages) \
+        <= k3.SMEM_PER_BLOCK
+    assert 1 <= mwarps <= 16
+    if rows_per > k:
+        assert 32 * mwarps >= nsplit       # a lane per sorted list
+
+
+def test_topk_plan_at_the_vsearch_shape():
+    """The vector DB's search (nq = 1, 128 rows, k = 112): 16 blocks of 8
+    rows, a warp per row, no selection in them, then one warp sorting
+    the 128 scores, 4 per lane."""
+    from repro_torch.kernels import topk_retrieval as k3
+    assert k3.split_plan(1, 128, 112) == (1, 8, 8, 16, 8, 4, 8192, 3, 1)
+
+
+def test_topk_plan_keeps_the_gemm_order_on_large_corpora():
+    """nq >= 2 over a large corpus: a thread per row (R = 256), summing in
+    the plain product's order; nq = 1 lanes per row as its GEMV."""
+    from repro_torch.kernels import topk_retrieval as k3
+    assert k3.split_plan(16, 65536, 131)[1] == 256
+    assert k3.split_plan(2, 65536, 8)[1] == 256
+    assert k3.split_plan(1, 65536, 8)[1] == 32
+    assert k3.split_plan(16, 5000, 8)[1] == 16
+
+
+def test_kernel_libraries_hash_every_included_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every header it includes,
+    directly or through another header, so an edit to any rebuilds it."""
+    from repro_torch.kernels import _build
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("flash_attention")] == [
+        "flash_attention.cu", "common.cuh", "hopper.cuh"]
+    before = _build.lib_path("flash_attention")
+    other = _build.lib_path("topk_retrieval")
+    (tmp_path / "hopper.cuh").write_text(
+        (tmp_path / "hopper.cuh").read_text() + "\n// edit\n")
+    assert _build.lib_path("flash_attention") != before
+    assert _build.lib_path("topk_retrieval") == other
+
+
+def test_ptxas_report_names_each_kernel():
+    from repro_torch.kernels import _build
+    assert _build.demangle("_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi128EEEv10"
+                           "CUtensorMap_st") == "flash_fwd_wgmma<128>"
+    assert _build.demangle("_ZN12_GLOBAL__N_19flash_fwdIfLi64EEEvPKT_") \
+        == "flash_fwd<f32,64>"
+    out = ("ptxas info : Compiling entry function '_ZN12_GLOBAL__N_110topk_"
+           "mergeILi4EEEvPKfPKiPfPiii' for 'sm_90a'\n"
+           "ptxas info : Function properties for _ZN12_GLOBAL__N_110topk_"
+           "mergeILi4EEEvPKfPKiPfPiii\n"
+           "    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\n"
+           "ptxas info : Used 96 registers, used 1 barriers\n")
+    assert _build.ptxas_report(out) == [
+        "topk_merge<4>: Used 96 registers, used 1 barriers, 16 bytes stack "
+        "frame, 8 bytes spill stores, 8 bytes spill loads"]
