@@ -10,18 +10,26 @@ failure ends the run with a non-zero exit code and no result line:
               parallel).
 1b. SASS    — the machine code of the redesigned kernels: K2's bf16
               kernel issues wgmma (HGMMA) and TMA loads (UTMALDG), K3's
-              cp.async (LDGSTS).
+              cp.async (LDGSTS), K1's 16-byte global loads (LDG.E.128)
+              and cluster barriers (UCGABAR_ARV/UCGABAR_WAIT), K4's
+              int8_mm_wgmma the integer wgmma (IGMMA) and TMA loads.
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
-              K1–K3 at the qwen3 / qwen1.5-0.5b shapes; K2 in bf16 (the
+              K1–K3 at the qwen3 / qwen1.5-0.5b shapes; K1 at the zamba2
+              engine's (32 heads of 64, S in {64, 333, 923} cached
+              positions of a 1024-slot cache) with every split count
+              (cluster size) from 1 to 8, and ragged rows with a 0-length
+              one inside an 8-block cluster; K2 in bf16 (the
               wgmma kernel) at e in {16, 64, 128} x g in {1, 2, 4}, at the
               zamba2 engine's shapes (split key range) and with kv_len < sk
               or 0; K3 over every split plan (nq in {1, 16}, N in {128,
               5000, 65536}, k in {8, 112, 131, 256}); K5 (SSD chunk) at
               zamba2's (64 heads, P = N = 64) for Q in {1, 77, 128, 256} and
               nc in {1, 2}, K4 (int8 product, on no path) at the reference
-              sweep's, the bench's and one zamba2 projection's shapes.
+              sweep's, the bench's (512³) and one zamba2 projection's
+              shapes on int8_mm_wgmma (both timed), and a ragged shape on
+              the __dp4a int8_mm.
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -182,11 +190,15 @@ def rand(shape, dtype, g):
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
-def decode_case(b, h, n, S, e, dtype, g, lengths=None):
+def decode_case(b, h, n, S, e, dtype, g, lengths=None, nsplit=None,
+                slots=None):
+    """``nsplit`` forces the split count (else ``split_plan``'s);
+    ``slots`` > S makes the caches the S-position prefix of a longer one,
+    as the layers pass them (a batch stride that is not S·n·e)."""
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import ref
     q = rand((b, h, e), dtype, g)
-    kc, vc = rand((b, S, n, e), dtype, g), rand((b, S, n, e), dtype, g)
+    kc, vc = (rand((b, slots or S, n, e), dtype, g)[:, :S] for _ in range(2))
     lens = torch.tensor(lengths or [S] * b, dtype=torch.int32, device="cuda")
 
     def library():      # SDPA over the (b, n, S, e) view: all rows length S
@@ -194,7 +206,7 @@ def decode_case(b, h, n, S, e, dtype, g, lengths=None):
             q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
             enable_gqa=True)[:, :, 0]
     bnd = bound_ms(k1.bytes_moved(q, kc, lens), (k1.flops(q, lens, S), dtype))
-    return dict(kernel=lambda: k1.decode_attention(q, kc, vc, lens),
+    return dict(kernel=lambda: k1.run(q, kc, vc, lens, nsplit),
                 plain=lambda: ref.decode_attention_ref(q, kc, vc, lens),
                 library=library if lengths is None else None, bound=bnd,
                 tol=TOL[dtype])
@@ -346,17 +358,27 @@ def phase_build():
     say(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s "
         f"(nvcc {_build.nvcc()})")
     # the machine code of the redesigned kernels: wgmma (HGMMA) and TMA
-    # loads (UTMALDG) in K2's bf16 kernel, cp.async (LDGSTS) in K3's
+    # loads (UTMALDG) in K2's bf16 kernel, cp.async (LDGSTS) in K3's;
+    # 16-byte loads (LDG.E.128) and the cluster barrier of the split merge
+    # (UCGABAR_ARV/WAIT) in K1's; the integer wgmma (IGMMA) and TMA loads
+    # in K4's int8_mm_wgmma.  Each named kernel must issue each opcode.
+    must = {"flash_fwd_wgmma": ("HGMMA", "UTMALDG"),
+            "topk_partial": ("LDGSTS",),
+            "decode_attn": ("LDG.E.128", "UCGABAR_ARV", "UCGABAR_WAIT"),
+            "int8_mm_wgmma": ("IGMMA", "UTMALDG")}
     for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG")),
-                          ("topk_retrieval", ("LDGSTS",))):
+                          ("topk_retrieval", ("LDGSTS",)),
+                          ("decode_attention", ("LDG.E.128", "UCGABAR_ARV",
+                                                "UCGABAR_WAIT")),
+                          ("int8_matmul", ("IGMMA", "UTMALDG"))):
         counts = _build.sass_counts(name, opcodes)
         say(f"[build] {name} SASS: " + " | ".join(
             f"{fn}: " + ", ".join(f"{c} {op}" for op, c in ops_.items())
             for fn, ops_ in sorted(counts.items())))
-        if name == "flash_attention":
-            assert all(v["HGMMA"] > 0 and v["UTMALDG"] > 0
-                       for fn, v in counts.items()
-                       if fn.startswith("flash_fwd_wgmma")), counts
+        for fn, v in counts.items():
+            for op in must.get(fn.split("<")[0], ()):
+                assert v[op] > 0, f"{fn} issues no {op}: {counts}"
+        assert any(fn.split("<")[0] in must for fn in counts), counts
 
 
 def phase_kernels():
@@ -365,6 +387,10 @@ def phase_kernels():
     say("[kernels] TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+    # the floor under every time below: an empty kernel, timed as they are
+    floor = timed(lambda: torch.cuda._sleep(0))[0]
+    say(f"[kernels] launch floor: an empty kernel (torch.cuda._sleep(0)) "
+        f"times {1e3 * floor:.2f} us back to back")
     # K1: qwen3 embed/rerank/search (g=2), qwen3-4b chat (g=4), draft (g=1)
     for (h, n, e), who in (((16, 8, 128), "qwen3 g=2"),
                            ((32, 8, 128), "qwen3-4b g=4"),
@@ -390,6 +416,48 @@ def phase_kernels():
                       "decode ragged lengths")
     say(f"[kernels] decode_attention ragged lengths [300,77,0]: "
         f"max|err| {err:.2e}")
+    # K1 at the zamba2 engine's shapes: 32 heads of 64 (g = 1), b = 1, S
+    # cached positions of a 1024-slot cache; the plan's split count timed
+    # against the plain version and SDPA, then every cluster size from 1
+    # to 8 (a launch with nsplit > 1 fails unless its cluster formed: the
+    # kernel traps on %cluster_nctarank != nsplit)
+    from repro_torch.kernels import decode_attention as k1
+    for S in (64, 333, 923):
+        plan = k1.split_plan(1, 32, 32, S, 64)
+        for dt in (torch.bfloat16, torch.float32):
+            c = decode_case(1, 32, 32, S, 64, dt, g, slots=1024)
+            err = check_close(c["kernel"](), c["plain"](), c["tol"],
+                              f"decode engine S={S} {dt}")
+            if dt == torch.bfloat16:
+                errs["decode_attention"] = max(errs["decode_attention"], err)
+            line = (f"[kernels] decode_attention zamba2 engine S={S} "
+                    f"{str(dt)[6:]} (plan {plan}): max|err| {err:.2e} <= "
+                    f"{c['tol']:.0e}")
+            if dt == torch.bfloat16:
+                line += " | " + fmt(measure(c))
+            say(line)
+        per_split = []
+        for ns in range(1, k1.MAX_SPLIT + 1):
+            for dt in (torch.bfloat16, torch.float32):
+                c = decode_case(1, 32, 32, S, 64, dt, g, nsplit=ns,
+                                slots=1024)
+                check_close(c["kernel"](), c["plain"](), c["tol"],
+                            f"decode engine S={S} nsplit={ns} {dt}")
+                if dt == torch.bfloat16:
+                    per_split.append(f"{ns}: {1e3 * timed(c['kernel'])[0]:.1f}")
+        say(f"[kernels] decode_attention zamba2 engine S={S}, every split "
+            f"count 1-8 in bf16 and f32 within tolerance; bf16 kernel us by "
+            f"split count: " + ", ".join(per_split))
+    for dt in (torch.bfloat16, torch.float32):
+        c = decode_case(3, 32, 32, 500, 64, dt, g, lengths=[500, 0, 130],
+                        nsplit=8, slots=1024)
+        got = c["kernel"]()
+        err = check_close(got, c["plain"](), c["tol"],
+                          f"decode ragged cluster {dt}")
+        assert float(got[1].float().abs().max()) == 0.0, "0-length row not 0"
+        say(f"[kernels] decode_attention ragged rows [500,0,130] in 8-block "
+            f"clusters {str(dt)[6:]}: max|err| {err:.2e}, the 0-length row "
+            f"outputs 0")
     # K2: causal prefill / embed / rerank lengths, one prefill at an offset
     for (h, n), who in (((16, 8), "qwen3 g=2"), ((32, 8), "qwen3-4b g=4")):
         for sq, sk, off in ((16, 16, 0), (128, 128, 0), (192, 192, 0),
@@ -504,19 +572,24 @@ def phase_kernels():
     err = check_case(c, "ssd_chunk one group per head")
     say(f"[kernels] ssd_chunk b=2 nc=3 Q=32 H=4 P=16 N=8, a group per head: "
         f"max|err| {err:.2e}")
-    # K4, on no path: the reference sweep, the bench's shape, a zamba2
-    # projection (its row of the kernel table is timed at the last)
+    # K4, on no path: the reference sweep, the bench's shape (512³), a
+    # zamba2 projection (its row of the kernel table is timed at the
+    # last), all on int8_mm_wgmma; a ragged shape on the __dp4a int8_mm
+    from repro_torch.kernels import int8_matmul as k4
     k4_time = None
     for M, K, N in ((128, 256, 192), (64, 64, 64), (256, 128, 512),
-                    (512, 512, 512), (128, 2048, 4096)):
+                    (77, 100, 33), (512, 512, 512), (128, 2048, 4096)):
+        fn = k4.kernel_for(M, N, K)
+        assert fn == ("int8_mm" if (M, K, N) == (77, 100, 33)
+                      else "int8_mm_wgmma"), fn
         for dt in (torch.bfloat16, torch.float32):
             c = int8_case(M, K, N, dt, g)
             err = check_case(c, f"int8_matmul {M}x{K}x{N} {dt}")
             errs["int8_matmul"] = max(errs["int8_matmul"], err)
-            line = (f"[kernels] int8_matmul M={M} K={K} N={N} -> "
+            line = (f"[kernels] int8_matmul ({fn}) M={M} K={K} N={N} -> "
                     f"{str(dt)[6:]}: equal to the plain version "
                     f"(max|err| {err:.1e})")
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and M * K * N >= 512 ** 3:
                 k4_time = measure(c)
                 line += (" | " + fmt(k4_time)
                          + " (library: _int_mm, no epilogue)")
@@ -911,7 +984,8 @@ def main() -> int:
         else:       # K4: on no path; timed at a zamba2 projection's shape
             assert sum(by_path.values()) == 0, by_path
             t = dict(k4_time, max_abs_err=0.0)
-            extra = dict(timed_at="M=128 K=2048 N=4096 (on no path)")
+            extra = dict(timed_at="M=128 K=2048 N=4096 (on no path)",
+                         timed_kernel="int8_mm_wgmma")
         table.append(dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -171,13 +171,24 @@ def demangle(mangled: str) -> str:
     return f"{names[-1]}<{','.join(args)}>"
 
 
+def opcode_pattern(op: str) -> "re.Pattern[str]":
+    """An opcode and its modifiers, in order, with any others between:
+    ``LDG.E.128`` matches ``LDG.E.128.CONSTANT`` and ``LDG.E.EL.128``,
+    ``IGMMA`` matches ``IGMMA.64x64x32.S8.S8``."""
+    return re.compile(r"\b" + r"(?:\.\w+)*\.".join(
+        re.escape(p) for p in op.split(".")) + r"\b")
+
+
 def sass_counts(name: str, opcodes: Sequence[str]) -> Dict[str, Dict]:
     """{kernel: {opcode: count}} of the built library's machine code
     (``cuobjdump -sass``): shows which instructions a kernel really
-    issues, e.g. HGMMA (wgmma), UTMALDG (a TMA load), LDGSTS (cp.async)."""
+    issues, e.g. HGMMA (bf16 wgmma), IGMMA (int8 wgmma), UTMALDG (a TMA
+    load), LDGSTS (cp.async), LDG.E.128 (a 16-byte global load),
+    UCGABAR_WAIT (a cluster barrier); see :func:`opcode_pattern`."""
     exe = Path(nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(exe), "-sass", str(lib_path(name))],
                          capture_output=True, text=True, check=True).stdout
+    pats = {op: opcode_pattern(op) for op in opcodes}
     counts: Dict[str, Dict] = {}
     cur = None
     for ln in out.splitlines():
@@ -186,8 +197,8 @@ def sass_counts(name: str, opcodes: Sequence[str]) -> Dict[str, Dict]:
             cur = counts.setdefault(demangle(m.group(1)),
                                     {op: 0 for op in opcodes})
         elif cur is not None:
-            for op in opcodes:
-                if re.search(rf"\b{op}\b", ln):
+            for op, pat in pats.items():
+                if pat.search(ln):
                     cur[op] += 1
     return counts
 

@@ -1,201 +1,420 @@
-// K1 — GQA split-KV flash-decoding for one new token per sequence.
+// K1 — GQA flash-decoding for one new token per sequence, in one launch.
 //
 // Replaces the TPU kernel repro/kernels/decode_attention.py::_decode_kernel
 // (pallas_call at decode_attention.py:93).
 //
-// What bounds it on the H100: device-memory bytes.  Each step reads the
-// valid prefix of the K and V caches once (b * len * n * e * 2 tensors) and
-// does ~4 flops per cached element, far below the ~295 flop/byte ridge of
-// bf16 on this card.  What the design does about it:
-//  * the (b, S, n, e) per-layer cache is read in place through its strides
-//    (the TPU wrapper transposes it into a copy first, decode_attention.py:75);
-//  * one block per (b, kv head, KV split) holds the g = h/n query heads of its
-//    kv head, so each K/V row staged in shared memory serves all g heads and
-//    the cache is read exactly once;
-//  * the KV axis is split across blocks so a short batch still spreads over
-//    the 132 SMs; blocks past a row's length exit at once, and a second small
-//    kernel combines the per-split (max, sum, acc) with the usual rescale.
-// Semantics follow the reference `mha`, not the Pallas kernel: a row with
-// lengths[b] == 0 outputs 0 (the Pallas -1e30 sentinel returns mean(V)).
+// What bounds it on the H100: device-memory bytes in principle (each step
+// reads the valid prefix of the K and V caches once and does ~4 flops per
+// cached element, far below the ~295 flop/byte ridge of bf16), but at the
+// serving paths' shapes the bytes take well under a microsecond (32 keys on
+// the RAG path, at most 923 on the zamba2 engine), so what costs is
+// latency: launches, round trips to device memory, serial chains and idle
+// warps.  What the design does about it:
+//  * One launch per call.  A block takes one (b, key split) and either
+//    the g = h/n query heads of a kv head, so each K row it loads serves
+//    all g scores, or, on a short row (every call of the RAG path: at
+//    most 32 keys), a single query head, so the g blocks of a kv head run
+//    side by side on more SMs and each does 1/g of the math (they read
+//    the same few rows, from L2).  When one split covers a row the block
+//    normalises and writes `out` itself; no partials, no scratch, no
+//    second kernel.  kernels/decode_attention.py::split_plan chooses the
+//    heads, the split and the warps (4, or 8 for a single head on a long
+//    row).
+//  * Several splits (the engine's long rows, only while the b·n blocks
+//    would leave SMs idle) run as one thread-block cluster of nsplit <= 8
+//    blocks (cudaLaunchKernelEx with a cluster dimension) and merge their
+//    (m, l, acc) through distributed shared memory: every block reads the
+//    others' results with cluster.map_shared_rank after a cluster
+//    barrier, and each writes its share of the output.  Chosen over a
+//    last-block-done merge because it needs no workspace and no counter,
+//    so nothing is shared between calls or between the streams calls may
+//    come from, and the partials never leave the SMs.  The kernel reads
+//    %cluster_nctarank and traps if the launch did not form the cluster
+//    it was planned with.  A cluster costs about as much as one more load
+//    step (measured), so a split takes at least two steps.
+//  * Every warp on keys, lanes on the head dimension.  A K or V row is
+//    read with 16-byte loads (8 bf16 or 4 f32 a lane), so E/8 (bf16) or
+//    E/4 (f32) lanes share a row and a warp reads 32/that rows a step;
+//    each partial dot product is reduced with __shfl_xor_sync inside the
+//    lane group.  q for the block's heads stays in registers, and each K
+//    row loaded once serves all their scores.
+//  * Each lane group keeps its own online softmax (m, l, acc) for the
+//    block's heads over U rows a step (one rescale per U rows); the
+//    groups merge by shuffles inside a warp, the warps through shared
+//    memory, the splits through the cluster.
+//  * The next step's 16-byte loads are issued before the current step's
+//    math (a register double buffer), so on the engine's longest rows the
+//    loads overlap the FMAs; the first step's go out before lengths[b]
+//    arrives.
+// Numerics: scores q.k in f32, times log2(e)/sqrt(e) so that softmax runs
+// on exp2f; the unnormalised probabilities are rounded to V's type before
+// P.V (the reference `mha` rounds the normalised ones: both are within
+// bf16's 2e-2, and in f32 the rounding is exact).  Semantics follow `mha`,
+// not the Pallas kernel: a row with lengths[b] == 0 outputs 0 (the Pallas
+// -1e30 sentinel returns mean(V)).
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBK = 32;        // keys per tile: one per lane
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 16;      // query heads per kv head
+constexpr int kMaxSplit = 8;   // the portable cluster size
 
-template <typename T, int E>
-__global__ void __launch_bounds__(kThreads)
-decode_split(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ lengths,
-             float* __restrict__ part_o, float* __restrict__ part_ml,
-             int h, int n, int S, int chunk, int nsplit,
-             long long ksb, long long kss, long long ksn,
-             long long vsb, long long vss, long long vsn) {
-  constexpr int kTPC = kThreads / E;          // threads per output column
-  constexpr int kRows = (kMaxG + kTPC - 1) / kTPC;
-  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
-  const int g = h / n;
+// rows each lane group takes per step: its registers hold q and acc for
+// the G heads and two steps of K/V rows
+template <int G> __host__ __device__ constexpr int rows_per_step() {
+  return G <= 4 ? 4 : 2;
+}
+
+// 16 bytes of T as floats
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Grid (nsplit, n * g / heads, b), clusters of (nsplit, 1, 1), W warps a
+// block.  Block (split, y, bi) takes keys [split * chunk, min((split + 1)
+// * chunk, len)) of row bi for query heads [part * heads, + heads) of kv
+// head kvh, where y = kvh * (g / heads) + part; heads <= G.
+template <typename T, int E, int G, int W>
+__global__ void __launch_bounds__(32 * W)
+decode_attn(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const int* __restrict__ lengths,
+            T* __restrict__ out, int h, int n, int S, int chunk, int nsplit,
+            int heads, long long ksb, long long kss, long long ksn,
+            long long vsb, long long vss, long long vsn) {
+  constexpr int kThreads = 32 * W;
+  constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte load
+  constexpr int kLpr = E / kVec;            // lanes per key row
+  constexpr int kRpw = 32 / kLpr;           // rows per warp per step
+  constexpr int kGroups = W * kRpw;         // lane groups in the block
+  constexpr int kU = rows_per_step<G>();    // rows per lane group per step
+  static_assert(kLpr >= 1 && kLpr <= 32, "head dim");
+
+  __shared__ float red_acc[W][G][E];  // per warp; then the block's
+  __shared__ float red_ml[W][G][2];
+  __shared__ float blk_ml[G][2];
+
+  const int g = h / n, parts = g / heads;
+  const int split = blockIdx.x, bi = blockIdx.z;
+  const int kvh = blockIdx.y / parts;
+  const int head0 = kvh * g + (blockIdx.y % parts) * heads;  // first q head
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int len = max(0, min(lengths[bi], S));
+  const int sub = lane / kLpr, li = lane % kLpr;
+  const int gid = warp * kRpw + sub;
   const int start = split * chunk;
-  const int stop = min(start + chunk, len);
-  if (start >= stop) return;  // the combine kernel skips empty splits
-
-  __shared__ float qs[kMaxG][E];
-  __shared__ float ks[kBK][E + 1];
-  __shared__ float vs[kBK][E + 1];
-  __shared__ float ps[kMaxG][kBK];
-  __shared__ float alpha_s[kMaxG];
-
-  for (int i = t; i < g * E; i += kThreads) {
-    const int gi = i / E, j = i % E;
-    qs[gi][j] = repro::to_f(q[((long long)bi * h + kvh * g + gi) * E + j]);
-  }
-  const float sqrt_e = sqrtf((float)E);
-  float m_run[kMaxG / kWarps], l_run[kMaxG / kWarps];
-#pragma unroll
-  for (int r = 0; r < kMaxG / kWarps; ++r) {
-    m_run[r] = -CUDART_INF_F;
-    l_run[r] = 0.f;
-  }
-  const int col = t % E, row0 = t / E;
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-
-  const T* kb = k + bi * ksb + kvh * ksn;
-  const T* vb = v + bi * vsb + kvh * vsn;
-  for (int k0 = start; k0 < stop; k0 += kBK) {
-    const int nk = min(kBK, stop - k0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = t; i < kBK * E; i += kThreads) {
-      const int r = i / E, j = i % E;
-      float kv = 0.f, vv = 0.f;
-      if (r < nk) {
-        kv = repro::to_f(kb[(long long)(k0 + r) * kss + j]);
-        vv = repro::to_f(vb[(long long)(k0 + r) * vss + j]);
-      }
-      ks[r][j] = kv;
-      vs[r][j] = vv;
-    }
-    __syncthreads();
-    // scores and online softmax: warp w owns heads w, w+4, ...; lane = key
-#pragma unroll
-    for (int r = 0; r < kMaxG / kWarps; ++r) {
-      const int gi = warp + kWarps * r;
-      if (gi < g) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < E; ++j) s += qs[gi][j] * ks[lane][j];
-        s = s / sqrt_e;
-        const bool valid = lane < nk;
-        s = valid ? s : -CUDART_INF_F;
-        const float m_new = fmaxf(m_run[r], repro::warp_max(s));
-        const float p = valid ? expf(s - m_new) : 0.f;
-        const float alpha = expf(m_run[r] - m_new);  // 0 on the first tile
-        l_run[r] = alpha * l_run[r] + repro::warp_sum(p);
-        m_run[r] = m_new;
-        ps[gi][lane] = p;
-        if (lane == 0) alpha_s[gi] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int gi = row0 + kTPC * r;
-      if (gi < g) {
-        float a = acc[r] * alpha_s[gi];
-        for (int kk = 0; kk < nk; ++kk) a += ps[gi][kk] * vs[kk][col];
-        acc[r] = a;
-      }
-    }
-  }
-
-  const long long slot = ((long long)bi * n + kvh) * nsplit + split;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int gi = row0 + kTPC * r;
-    if (gi < g) part_o[(slot * g + gi) * E + col] = acc[r];
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kMaxG / kWarps; ++r) {
-      const int gi = warp + kWarps * r;
-      if (gi < g) {
-        part_ml[(slot * g + gi) * 2] = m_run[r];
-        part_ml[(slot * g + gi) * 2 + 1] = l_run[r];
-      }
-    }
-  }
-}
-
-// one block per (b, q head); thread j owns output column j
-template <typename T, int E>
-__global__ void decode_combine(const float* __restrict__ part_o,
-                               const float* __restrict__ part_ml,
-                               const int* __restrict__ lengths,
-                               T* __restrict__ out, int h, int n, int S,
-                               int chunk, int nsplit) {
-  const int bi = blockIdx.x / h, hh = blockIdx.x % h;
-  const int g = h / n, kvh = hh / g, gi = hh % g;
-  const int j = threadIdx.x;
+  // the split's rows that lie in the cache: the first step's loads go out
+  // with these bounds, before lengths[bi] arrives (rows past the length
+  // are in the cache and are masked below)
+  const int stop_s = min(start + chunk, S);
   const int len = max(0, min(lengths[bi], S));
-  const int nact = (len + chunk - 1) / chunk;
-  const long long base = ((long long)bi * n + kvh) * nsplit;
-  float m = -CUDART_INF_F;
-  for (int s = 0; s < nact; ++s)
-    m = fmaxf(m, part_ml[((base + s) * g + gi) * 2]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < nact; ++s) {
-    const long long slot = (base + s) * g + gi;
-    const float w = expf(part_ml[slot * 2] - m);
-    l += part_ml[slot * 2 + 1] * w;
-    acc += part_o[slot * E + j] * w;
+  const int stop = min(start + chunk, len);
+  const int niter =
+      stop > start ? (stop - start + kGroups * kU - 1) / (kGroups * kU) : 0;
+
+  // scores in base-2 units: exp(s / sqrt(E) - m) = exp2(s * scale - m')
+  const float scale = 1.4426950408889634f / sqrtf((float)E);
+  float qf[G][kVec];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi < heads) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(
+          q + ((long long)bi * h + head0 + gi) * E + li * kVec));
+      unpack(r, qf[gi]);
+    } else {
+#pragma unroll
+      for (int x = 0; x < kVec; ++x) qf[gi][x] = 0.f;
+    }
   }
-  // a row with no valid key (length 0) outputs 0, as the reference does
-  out[((long long)bi * h + hh) * E + j] =
-      repro::from_f<T>(l > 0.f ? acc / l : 0.f);
+  float m_run[G], l_run[G], acc[G][kVec];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    m_run[gi] = -CUDART_INF_F;
+    l_run[gi] = 0.f;
+#pragma unroll
+    for (int x = 0; x < kVec; ++x) acc[gi][x] = 0.f;
+  }
+
+  const T* kb = k + bi * ksb + kvh * ksn + li * kVec;
+  const T* vb = v + bi * vsb + kvh * vsn + li * kVec;
+  auto key_of = [&](int it, int u) {
+    return start + (it * kU + u) * kGroups + gid;
+  };
+  auto load = [&](int it, int bound, uint4 (&kr)[kU], uint4 (&vr)[kU]) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int key = key_of(it, u);
+      if (key < bound) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + key * kss));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + key * vss));
+      } else {
+        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+
+  uint4 kc[kU], vc[kU];
+  load(0, stop_s, kc, vc);
+  for (int it = 0; it < niter; ++it) {
+    uint4 kn[kU], vn[kU];
+    if (it + 1 < niter) load(it + 1, stop, kn, vn);  // in flight meanwhile
+    float s[kU][G];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float kf[kVec];
+      unpack(kc[u], kf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float d = 0.f;
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) d = fmaf(qf[gi][x], kf[x], d);
+        s[u][gi] = d;
+      }
+    }
+#pragma unroll
+    for (int o = kLpr / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+          s[u][gi] += __shfl_xor_sync(0xffffffffu, s[u][gi], o);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const bool valid = key_of(it, u) < stop;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        s[u][gi] = valid ? s[u][gi] * scale : -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float mx = s[0][gi];
+#pragma unroll
+      for (int u = 1; u < kU; ++u) mx = fmaxf(mx, s[u][gi]);
+      const float m_new = fmaxf(m_run[gi], mx);
+      // no valid key so far: p = 0 and alpha = 0, never inf - inf
+      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = exp2f(m_run[gi] - m_use);
+      m_run[gi] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        s[u][gi] = exp2f(s[u][gi] - m_use);
+        sum += s[u][gi];
+      }
+      l_run[gi] = l_run[gi] * alpha + sum;
+#pragma unroll
+      for (int x = 0; x < kVec; ++x) acc[gi][x] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float vf[kVec];
+      unpack(vc[u], vf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float p = repro::round_to<T>(s[u][gi]);
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) acc[gi][x] = fmaf(p, vf[x], acc[gi][x]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      kc[u] = kn[u];
+      vc[u] = vn[u];
+    }
+  }
+
+  // merge the lane groups of a warp (same slice li, other rows)
+#pragma unroll
+  for (int o = kLpr; o < 32; o <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m_run[gi], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l_run[gi], o);
+      const float mm = fmaxf(m_run[gi], mo);
+      const float mu = mm == -CUDART_INF_F ? 0.f : mm;
+      const float a = exp2f(m_run[gi] - mu), c = exp2f(mo - mu);
+      l_run[gi] = l_run[gi] * a + lo * c;
+      m_run[gi] = mm;
+#pragma unroll
+      for (int x = 0; x < kVec; ++x)
+        acc[gi][x] =
+            acc[gi][x] * a + __shfl_xor_sync(0xffffffffu, acc[gi][x], o) * c;
+    }
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int x = 0; x < kVec; ++x)
+        red_acc[warp][gi][li * kVec + x] = acc[gi][x];
+      if (li == 0) {
+        red_ml[warp][gi][0] = m_run[gi];
+        red_ml[warp][gi][1] = l_run[gi];
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the warps: the block's (m, l) per head into blk_ml, its acc
+  // into red_acc[0] (each element read and written by one thread)
+  const uint32_t csize = cluster_nctarank();
+  if (csize != (uint32_t)nsplit) __trap();  // the planned cluster did not form
+  for (int idx = t; idx < heads * E; idx += kThreads) {
+    const int gi = idx / E, j = idx % E;
+    float mm = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mm = fmaxf(mm, red_ml[w][gi][0]);
+    const float mu = mm == -CUDART_INF_F ? 0.f : mm;
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float c = exp2f(red_ml[w][gi][0] - mu);
+      l += red_ml[w][gi][1] * c;
+      a += red_acc[w][gi][j] * c;
+    }
+    if (csize == 1) {
+      // a row with no valid key (length 0) outputs 0, as the reference does
+      out[((long long)bi * h + head0 + gi) * E + j] =
+          repro::from_f<T>(l > 0.f ? a / l : 0.f);
+    } else {
+      red_acc[0][gi][j] = a;
+      if (j == 0) {
+        blk_ml[gi][0] = mm;
+        blk_ml[gi][1] = l;
+      }
+    }
+  }
+  if (csize == 1) return;
+
+  // merge the splits through distributed shared memory: block `rank`
+  // writes the output elements [rank * kThreads, + kThreads), then
+  // every nsplit * kThreads on (over heads * E)
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's (m, l, acc) is in its shared memory
+  const int rank = (int)cluster.block_rank();
+  for (int idx = rank * kThreads + t; idx < heads * E;
+       idx += (int)csize * kThreads) {
+    const int gi = idx / E, j = idx % E;
+    float mm = -CUDART_INF_F, ms[kMaxSplit], ls[kMaxSplit];
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) {
+      ms[r] = -CUDART_INF_F;
+      ls[r] = 0.f;
+      if (r < (int)csize) {
+        const float* ml = cluster.map_shared_rank(&blk_ml[gi][0], r);
+        ms[r] = ml[0];
+        ls[r] = ml[1];
+      }
+      mm = fmaxf(mm, ms[r]);
+    }
+    const float mu = mm == -CUDART_INF_F ? 0.f : mm;
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) {
+      if (r < (int)csize) {
+        const float c = exp2f(ms[r] - mu);
+        l += ls[r] * c;
+        a += *cluster.map_shared_rank(&red_acc[0][gi][j], r) * c;
+      }
+    }
+    out[((long long)bi * h + head0 + gi) * E + j] =
+        repro::from_f<T>(l > 0.f ? a / l : 0.f);
+  }
+  cluster.sync();  // no block leaves while another reads its memory
 }
 
-template <typename T, int E>
+template <typename T, int E, int G, int W>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* part_o, float* part_ml, void* out, int b, int h, int n,
-           int S, int chunk, int nsplit, long long ksb, long long kss,
-           long long ksn, long long vsb, long long vss, long long vsn,
-           cudaStream_t stream) {
-  decode_split<T, E><<<dim3(nsplit, n, b), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_o, part_ml, h, n, S, chunk,
-      nsplit, ksb, kss, ksn, vsb, vss, vsn);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine<T, E><<<b * h, E, 0, stream>>>(
-      part_o, part_ml, lengths, static_cast<T*>(out), h, n, S, chunk, nsplit);
-  return cudaGetLastError();
+           void* out, int b, int h, int n, int S, int chunk, int nsplit,
+           int heads, long long ksb, long long kss, long long ksn,
+           long long vsb, long long vss, long long vsn, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, h / heads, b);
+  cfg.blockDim = dim3(32 * W);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nsplit > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, decode_attn<T, E, G, W>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+      static_cast<T*>(out), h, n, S, chunk, nsplit, heads, ksb, kss, ksn,
+      vsb, vss, vsn);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the template of the smallest G that holds `heads`; 8 warps only for a
+// single head (the plan's long rows of g = 1)
+template <typename T, int E>
+int launch_g(const void* q, const void* k, const void* v,
+             const int* lengths, void* out, int b, int h, int n, int S,
+             int chunk, int nsplit, int heads, int warps, long long ksb,
+             long long kss, long long ksn, long long vsb, long long vss,
+             long long vsn, cudaStream_t stream) {
+#define REPRO_DECODE(G, W)                                                   \
+  return launch<T, E, G, W>(q, k, v, lengths, out, b, h, n, S, chunk,       \
+                            nsplit, heads, ksb, kss, ksn, vsb, vss, vsn,    \
+                            stream)
+  if (warps == 8 && heads == 1) REPRO_DECODE(1, 8);
+  if (warps != 4) return cudaErrorInvalidValue;
+  if (heads <= 1) REPRO_DECODE(1, 4);
+  if (heads <= 2) REPRO_DECODE(2, 4);
+  if (heads <= 4) REPRO_DECODE(4, 4);
+  if (heads <= 8) REPRO_DECODE(8, 4);
+  REPRO_DECODE(16, 4);
+#undef REPRO_DECODE
 }
 
 }  // namespace
 
 // q (b,h,e) contiguous; k/v (b,S,n,e) with unit stride on e and element
-// strides (ksb,kss,ksn); lengths (b,) int32; part_o (b,n,nsplit,g,e) and
-// part_ml (b,n,nsplit,g,2) f32 scratch; out (b,h,e) contiguous, q's dtype.
+// strides (ksb,kss,ksn), every strided row 16-byte aligned; lengths (b,)
+// int32; out (b,h,e) contiguous, q's dtype.  The plan (chunk, nsplit,
+// heads, warps) is decode_attention.py::split_plan's: nsplit <= 8 blocks
+// (one cluster) covering S, `heads` query heads a block (dividing g =
+// h/n, at most 16) and `warps` warps a block (4, or 8 for one head).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* part_o, void* part_ml, void* out, int dtype, int b, int h, int n,
-    int S, int e, int chunk, int nsplit, long long ksb, long long kss,
+    void* out, int dtype, int b, int h, int n, int S, int e, int chunk,
+    int nsplit, int heads, int warps, long long ksb, long long kss,
     long long ksn, long long vsb, long long vss, long long vsn,
     void* stream) {
-  if (h % n != 0 || h / n > kMaxG) return cudaErrorInvalidValue;
+  if (n < 1 || h % n != 0 || nsplit < 1 || nsplit > kMaxSplit ||
+      chunk < 1 || (long long)chunk * nsplit < S || heads < 1 ||
+      heads > 16 || (h / n) % heads != 0)
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto li = static_cast<const int*>(lengths);
-  auto po = static_cast<float*>(part_o);
-  auto pm = static_cast<float*>(part_ml);
-#define REPRO_DECODE(T, E)                                                   \
-  return launch<T, E>(q, k, v, li, po, pm, out, b, h, n, S, chunk, nsplit,  \
-                      ksb, kss, ksn, vsb, vss, vsn, st)
+#define REPRO_DECODE(T, E)                                                  \
+  return launch_g<T, E>(q, k, v, li, out, b, h, n, S, chunk, nsplit, heads, \
+                        warps, ksb, kss, ksn, vsb, vss, vsn, st)
   if (dtype == repro::kF32) {
     if (e == 16) REPRO_DECODE(float, 16);
     if (e == 64) REPRO_DECODE(float, 64);

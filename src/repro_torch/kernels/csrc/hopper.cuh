@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // shared-memory addresses, mbarriers, TMA tile loads and their tensor maps,
 // wgmma shared-memory descriptors, fences and the few wgmma shapes the
-// kernels issue.
+// kernels issue (bf16 for K2, s8 for K4).
 //
-// Layout convention.  A tile of 16-bit elements lives in shared memory as
-// TMA writes it with a swizzle of S bytes (S = 32 or 128): rows of S bytes,
-// the 16-byte chunk c of row r stored at chunk c ^ (r mod S/16), i.e. the
+// Layout convention.  A tile (of 16-bit or 8-bit elements) lives in shared
+// memory as TMA writes it with a swizzle of S bytes (S = 32 or 128): rows
+// of S bytes, the 16-byte chunk c of row r stored at chunk c ^ (r mod
+// S/16), i.e. the
 // byte offset o within an aligned block goes to o ^ (((o >> 7) & (S/16 -
 // 1)) << 4), CuTe's Swizzle<log2(S/16), 4, 3>.  A tile wider than S bytes
 // is stored as atoms of S bytes per row, one atom after another.  The
@@ -44,6 +45,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
       :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA) before it signals them on an mbarrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wait until the barrier's phase with parity `parity` has completed; a
@@ -115,6 +127,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_regs(int (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 #define REPRO_F8_AT(d, o)                                                  \
@@ -193,6 +210,31 @@ __device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define REPRO_S8_AT(d, o)                                                  \
+  "+r"(d[o]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]),              \
+      "+r"(d[o + 4]), "+r"(d[o + 5]), "+r"(d[o + 6]), "+r"(d[o + 7])
+
+// D (64 x 64, s32) (+)= A (64 x 32 int8, smem) * B (64 x 32 int8, smem)^T,
+// both K-major (8-bit wgmma has no transpose: both operands must be);
+// the s32 accumulators sit in the f32 fragment layout; scale_d == 0
+// overwrites D.  The integer sums are exact.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : REPRO_S8_AT(d, 0), REPRO_S8_AT(d, 8), REPRO_S8_AT(d, 16),
+        REPRO_S8_AT(d, 24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef REPRO_S8_AT
 #undef REPRO_F32_AT
 #undef REPRO_F8_AT
 
@@ -227,22 +269,26 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-d bf16 tensor map: dims[0] innermost (unit stride), strides[i] in
-// elements for dims 1..3, box (box0, box1, box2, 1), out-of-bounds
-// elements read as 0.  Returns a CUDA error code (0 on success).
-inline int make_map_4d(CUtensorMap* map, const void* base,
-                       const long long (&dims)[4],
-                       const long long (&strides)[4], int box0, int box1,
-                       int box2, CUtensorMapSwizzle swizzle) {
+// A 4-d tensor map of bf16 (or, with `type`, of bytes): dims[0] innermost
+// (unit stride), strides[i] in elements for dims 1..3, box (box0, box1,
+// box2, 1), out-of-bounds elements read as 0.  Returns a CUDA error code
+// (0 on success).
+inline int make_map_4d(
+    CUtensorMap* map, const void* base, const long long (&dims)[4],
+    const long long (&strides)[4], int box0, int box1, int box2,
+    CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const int elem = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   cuuint64_t gdim[4], gstride[3];
   for (int i = 0; i < 4; ++i) gdim[i] = (cuuint64_t)dims[i];
-  for (int i = 0; i < 3; ++i) gstride[i] = (cuuint64_t)strides[i + 1] * 2;
+  for (int i = 0; i < 3; ++i)
+    gstride[i] = (cuuint64_t)strides[i + 1] * elem;
   const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1,
                              (cuuint32_t)box2, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, type, 4,
                         const_cast<void*>(base), gdim, gstride, box, estride,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

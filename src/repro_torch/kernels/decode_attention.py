@@ -5,8 +5,15 @@ new query token per sequence attends over the first ``lengths[b]``
 positions of a ``(b, S, n, e)`` cache, read in place through its strides
 (a prefix view ``cache[:, :L]`` costs nothing).  A row of length 0 outputs
 0, as the reference ``mha`` does.
+
+One launch of ``decode_attn`` per call, allocating nothing but the output:
+a block per (b, kv head or query head, key split), every warp on its own
+key rows; when :func:`split_plan` splits a row, its splits run as one
+thread-block cluster and merge through distributed shared memory.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -14,21 +21,50 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import I, L, P, require
 
 HEAD_DIMS = (16, 64, 128)
-MAX_GROUP = 16          # query heads per kv head (kMaxG)
-BLOCK_K = 32            # keys per tile (kBK)
+MAX_GROUP = 16          # query heads per kv head (the largest template)
+MAX_SPLIT = 8           # blocks of one cluster (the portable limit)
+SHORT_ROW = 64          # keys up to which a block takes one query head
+SPLIT_STEPS = 2         # load steps a split block must have at least
 TARGET_BLOCKS = 264     # two blocks per SM of an H100
-_SIG = {"repro_decode_attention": [P] * 7 + [I] * 8 + [L] * 6 + [P]}
+_SIG = {"repro_decode_attention": [P] * 5 + [I] * 10 + [L] * 6 + [P]}
 
 launches = _build.LaunchCounter()
 
 
-def split_plan(b: int, n: int, S: int):
-    """-> (chunk, nsplit): keys per split block (a multiple of BLOCK_K) and
-    the number of splits, so b * n * nsplit covers the SMs."""
-    tiles = -(-S // BLOCK_K)
-    want = max(1, -(-TARGET_BLOCKS // (b * n)))
-    chunk = BLOCK_K * max(1, -(-tiles // want))
-    return chunk, -(-S // chunk)
+def split_plan(b: int, h: int, n: int, S: int, e: int, itemsize: int = 2,
+               nsplit: Optional[int] = None):
+    """-> (chunk, nsplit, heads, warps) of ``decode_attn``: keys per split
+    block, splits per row (one cluster), query heads per block and warps
+    per block.
+
+    The serving paths' calls are latency-bound (at most 923 keys), so the
+    plan trades the reuse of each K row by the g heads of a block against
+    the length of a block's chain of loads:
+
+    * a short row (at most SHORT_ROW keys, every call of the RAG path)
+      takes a block per (b, query head) of 4 warps, unsplit: each block
+      scores one head, and the g blocks of a kv head read its rows from
+      L2;
+    * a longer row keeps the g heads together (each K row serves all g),
+      with 8 warps where g = 1 (the zamba2 engine) and 4 otherwise (at g
+      >= 2 eight warps left one block per SM, and measured slower), and
+      is split only when the b·n blocks leave SMs idle, into at most
+      MAX_SPLIT splits of at least SPLIT_STEPS load steps each: a cluster
+      costs about as much as one more step.
+
+    ``nsplit`` forces the split count (a check of every cluster size)."""
+    g = h // n
+    rows = 32 // (e * itemsize // 16)          # rows per warp per step
+    if nsplit is None and S <= SHORT_ROW and b * h <= TARGET_BLOCKS:
+        return S, 1, 1, 4
+    warps = 8 if g == 1 else 4
+    per_step = 4 if g <= 4 else 2               # rows per lane group
+    if nsplit is None:
+        want = -(-TARGET_BLOCKS // (b * n))
+        step = warps * rows * per_step          # keys of one load step
+        nsplit = max(1, min(MAX_SPLIT, want, S // (SPLIT_STEPS * step)))
+    chunk = -(-S // nsplit)
+    return chunk, -(-S // chunk), g, warps
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -36,6 +72,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q (b, h, e); k/v_cache (b, S, n, e); lengths (b,) int32 -> (b, h, e)
     in q's dtype."""
+    return run(q, k_cache, v_cache, lengths)
+
+
+def run(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+        lengths: torch.Tensor, nsplit: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_attention` with the plan of :func:`split_plan`, or
+    with ``nsplit`` splits of ``ceil(S / nsplit)`` keys (a check of every
+    cluster size)."""
     _build.check_cuda("decode_attention", [q, k_cache, v_cache, lengths])
     require(q.dim() == 3 and k_cache.dim() == 4
             and v_cache.shape == k_cache.shape,
@@ -61,23 +105,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     require(lengths.shape == (b,) and lengths.dtype == torch.int32
             and lengths.is_contiguous(),
             "decode_attention: lengths must be a contiguous (b,) int32")
-    g = h // n
-    chunk, nsplit = split_plan(b, n, S)
+    require(nsplit is None or 1 <= nsplit <= min(MAX_SPLIT, S),
+            f"decode_attention: {nsplit} splits of {S} keys")
+    chunk, nsplit, heads, warps = split_plan(b, h, n, S, e,
+                                             q.element_size(), nsplit)
+    q, k_cache, v_cache = (t if rows_aligned(t) else
+                           t.clone(memory_format=torch.contiguous_format)
+                           for t in (q, k_cache, v_cache))
     out = torch.empty_like(q)
-    part_o = torch.empty((b, n, nsplit, g, e), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b, n, nsplit, g, 2), dtype=torch.float32,
-                          device=q.device)
     lib = _build.library("decode_attention", _SIG)
     rc = lib.repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-        out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h, n, S, e, chunk,
-        nsplit, *k_cache.stride()[:3], *v_cache.stride()[:3],
-        _build.stream_ptr(q))
+        lengths.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype],
+        b, h, n, S, e, chunk, nsplit, heads, warps, *k_cache.stride()[:3],
+        *v_cache.stride()[:3], _build.stream_ptr(q))
     _build.check(lib, rc, "decode_attention")
     launches.add()
     return out
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Every head-dim row starts on 16 bytes, as the kernel's vector loads
+    need: the path's tensors and cache prefixes all do; any other view is
+    copied first."""
+    step = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(st % step == 0 for st in t.stride()[:-1]))
 
 
 def bytes_moved(q: torch.Tensor, k_cache: torch.Tensor,

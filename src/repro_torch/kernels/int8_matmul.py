@@ -4,9 +4,12 @@
 Replaces the Pallas TPU kernel ``repro/kernels/int8_matmul.py``: int8
 ``x (M,K)`` times int8 ``w (K,N)`` summed in int32, then ``(acc·sx)·sw``
 in f32 with per-row activation scales ``sx (M,1)`` and per-column weight
-scales ``sw (1,N)``, cast to ``out_dtype``.  Like the reference, nothing on
-the serving path calls it: it is a kernel of its own, checked on the card
-by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+scales ``sw (1,N)``, cast to ``out_dtype``.  Shapes with K and N
+multiples of 16 run ``int8_mm_wgmma`` on the int8 tensor cores, others
+the ``__dp4a`` kernel ``int8_mm`` (:func:`kernel_for`).  Like the
+reference, nothing on the serving path calls it: it is a kernel of its
+own, checked on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import I, P, require
 
-_SIG = {"repro_int8_matmul": [P] * 5 + [I] * 4 + [P]}
+_SIG = {"repro_int8_matmul": [P] * 5 + [I] * 5 + [P]}
 
 launches = _build.LaunchCounter()
 
@@ -56,15 +59,28 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
             f"int8_matmul: out_dtype {out_dtype} unsupported")
     require(all(t.is_contiguous() for t in (x, w, sx, sw)),
             "int8_matmul: inputs must be contiguous")
+    wgmma = kernel_for(M, N, K) == "int8_mm_wgmma"
+    if wgmma:   # TMA and 16-byte rows of w need 16-byte aligned bases
+        x, w = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (x, w))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     lib = _build.library("int8_matmul", _SIG)
     rc = lib.repro_int8_matmul(x.data_ptr(), w.data_ptr(), sx.data_ptr(),
                                sw.data_ptr(), out.data_ptr(),
                                _build.DTYPE_CODES[out_dtype], M, N, K,
-                               _build.stream_ptr(x))
+                               int(wgmma), _build.stream_ptr(x))
     _build.check(lib, rc, "int8_matmul")
     launches.add()
     return out
+
+
+def kernel_for(M: int, N: int, K: int) -> str:
+    """The ``__global__`` that runs an (M,K)·(K,N) product: the int8
+    tensor cores where K and N are multiples of 16 (x's rows by TMA, w's
+    in 16-byte pieces), else the ``__dp4a`` kernel."""
+    if K % 16 == 0 and N % 16 == 0:
+        return "int8_mm_wgmma"
+    return "int8_mm"
 
 
 def bytes_moved(x: torch.Tensor, w: torch.Tensor,

@@ -40,7 +40,7 @@ class Kernel:
 KERNELS = (
     Kernel("decode_attention", _decode,
            "src/repro/kernels/decode_attention.py:25",
-           ("decode_split", "decode_combine")),
+           ("decode_attn",)),
     Kernel("flash_attention", _flash,
            "src/repro/kernels/flash_attention.py:26",
            ("flash_fwd_wgmma", "flash_combine", "flash_fwd")),
@@ -48,7 +48,8 @@ KERNELS = (
            "src/repro/kernels/topk_retrieval.py:22",
            ("topk_partial", "topk_merge")),
     Kernel("int8_matmul", _int8,
-           "src/repro/kernels/int8_matmul.py:22", ("int8_mm",)),
+           "src/repro/kernels/int8_matmul.py:22",
+           ("int8_mm_wgmma", "int8_mm")),
     Kernel("ssd_chunk", _ssd,
            "src/repro/kernels/mamba2_scan.py:23", ("ssd_chunk_fwd",)),
 )

@@ -7,12 +7,14 @@ the CUDA toolkit; ``tests/conftest.py`` imports JAX, so there run
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 2e-5, bf16 2e-2 (the kernels sum in another order and
-round probabilities to bf16 at another point than ``mha``), top-k values
-1e-4 with ids exactly equal (on random data over every split plan, ids
-may differ only inside near-ties, exact scores within 1e-5: the kernel
-sums in another order than the plain product), the int8 product exactly
-equal, the SSD chunk 2e-4 (f32 outputs from sums of up to 256 products
-in another order).  TF32 is off for the plain versions' products.  bf16
+round probabilities to bf16 at another point than ``mha``; K1 runs every
+template and cluster size), top-k values 1e-4 with ids exactly equal (on
+random data over every split plan, ids may differ only inside
+near-ties, exact scores within 1e-5: the kernel sums in another order
+than the plain product), the int8 product exactly equal
+(``int8_mm_wgmma`` where K and N are multiples of 16, else ``int8_mm``),
+the SSD chunk 2e-4 (f32 outputs from sums of up to 256 products in
+another order).  TF32 is off for the plain versions' products.  bf16
 attention runs the wgmma kernel (``flash_fwd_wgmma``), f32 the CUDA-core
 one.
 """
@@ -62,6 +64,71 @@ def test_decode_kernel_matches_plain(cuda, h, n, e, dtype):
     kc, vc = _dev(rng, (b, S, n, e), dtype, cuda), \
         _dev(rng, (b, S, n, e), dtype, cuda)
     lengths = torch.tensor([S, 77, 0], dtype=torch.int32, device=cuda)
+    got = k1.decode_attention(q, kc, vc, lengths)
+    want = ref.decode_attention_ref(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("e", [16, 64, 128])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_kernel_every_group_and_head_dim(cuda, g, e, dtype):
+    """Every template of decode_attn (g query heads per kv head, head dim
+    e), one split and an 8-block cluster, ragged rows."""
+    from repro_torch.kernels import decode_attention as k1
+    rng = np.random.default_rng(28)
+    b, n, S = 2, 2, 200
+    q = _dev(rng, (b, g * n, e), dtype, cuda)
+    kc, vc = (_dev(rng, (b, S, n, e), dtype, cuda) for _ in range(2))
+    lengths = torch.tensor([S, 61], dtype=torch.int32, device=cuda)
+    want = ref.decode_attention_ref(q, kc, vc, lengths)
+    for nsplit in (1, 8):
+        got = k1.run(q, kc, vc, lengths, nsplit)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", range(1, 9))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_kernel_every_split_count(cuda, nsplit, dtype):
+    """The zamba2 engine's heads (32 of 64, g = 1) over a 1024-slot cache
+    read as its prefix (a batch stride that is not S·n·e), every cluster
+    size, ragged rows with a 0-length one inside the cluster."""
+    from repro_torch.kernels import decode_attention as k1
+    rng = np.random.default_rng(29)
+    S = 923
+    q = _dev(rng, (3, 32, 64), dtype, cuda)
+    kc, vc = (_dev(rng, (3, 1024, 32, 64), dtype, cuda)[:, :S]
+              for _ in range(2))
+    lengths = torch.tensor([S, 0, 130], dtype=torch.int32, device=cuda)
+    got = k1.run(q, kc, vc, lengths, nsplit)
+    want = ref.decode_attention_ref(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    assert float(got[1].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,S,e", [
+    # the RAG path's short rows: a block per query head
+    (1, 16, 8, 32, 128), (1, 32, 8, 17, 128), (8, 32, 8, 32, 128),
+    (1, 16, 16, 32, 64), (2, 64, 4, 48, 128),
+    # the zamba2 engine: 32 heads of 64, the plan's split count
+    *[(1, 32, 32, S, 64) for S in (1, 64, 333, 512, 923)],
+    (1, 16, 8, 512, 128)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_kernel_at_the_planned_split(cuda, b, h, n, S, e, dtype):
+    """decode_attention as the layers call it, on the valid prefix of a
+    1024-slot cache, with split_plan's heads, splits and warps."""
+    from repro_torch.kernels import decode_attention as k1
+    rng = np.random.default_rng(30)
+    q = _dev(rng, (b, h, e), dtype, cuda)
+    kc, vc = (_dev(rng, (b, 1024, n, e), dtype, cuda)[:, :S]
+              for _ in range(2))
+    lengths = torch.full((b,), S, dtype=torch.int32, device=cuda)
     got = k1.decode_attention(q, kc, vc, lengths)
     want = ref.decode_attention_ref(q, kc, vc, lengths)
     torch.cuda.synchronize()
@@ -214,6 +281,33 @@ def test_int8_kernel_matches_plain_exactly(cuda, M, K, N, out_dtype):
     got = k4.int8_matmul(xq, wq, sx, sw, DTYPES[out_dtype])
     want = ref.int8_matmul_ref(xq, wq, sx, sw, DTYPES[out_dtype])
     torch.cuda.synchronize()
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(128, 2048, 4096), (512, 512, 512),
+                                   (64, 64, 64), (77, 100, 33)])
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+def test_int8_kernel_by_shape_from_unaligned_views(cuda, M, K, N,
+                                                   out_dtype):
+    """Each kernel_for choice (int8_mm_wgmma, or int8_mm for the ragged
+    shape) exactly equal to the plain version, with x and w handed over
+    as contiguous views 1 byte past a 16-byte boundary."""
+    from repro_torch.kernels import int8_matmul as k4
+    rng = np.random.default_rng(31)
+    xq, sx = k4.quantize_int8(_dev(rng, (M, K), "float32", cuda), axis=1)
+    wq, sw = k4.quantize_int8(_dev(rng, (K, N), "float32", cuda), axis=0)
+    x_buf = torch.empty(M * K + 1, dtype=torch.int8, device=cuda)
+    w_buf = torch.empty(K * N + 1, dtype=torch.int8, device=cuda)
+    x_view, w_view = x_buf[1:].view(M, K), w_buf[1:].view(K, N)
+    x_view.copy_(xq)
+    w_view.copy_(wq)
+    assert x_view.data_ptr() % 16 == 1
+    got = k4.int8_matmul(x_view, w_view, sx, sw, DTYPES[out_dtype])
+    want = ref.int8_matmul_ref(xq, wq, sx, sw, DTYPES[out_dtype])
+    torch.cuda.synchronize()
+    assert k4.kernel_for(M, N, K) == ("int8_mm" if K % 16 else
+                                      "int8_mm_wgmma")
     np.testing.assert_array_equal(_f32(got), _f32(want))
 
 

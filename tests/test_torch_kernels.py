@@ -319,6 +319,72 @@ def test_flash_plan_at_path_shapes(b, sq, h, n, kv_len, q_offset, want):
         assert chunk >= k2.MIN_SPLIT_TILES * k2.KEY_TILE
 
 
+# K1 (b, h, n, S, e, nsplit, heads a block): the RAG path's rows (at most
+# 32 cached keys) never split and take a block per query head; the zamba2
+# engine's (b = 1, 32 heads of 64, MHA, 64 to 923 keys of a 1024-slot
+# cache) split into at most 8 blocks of at least two load steps
+DECODE_PLAN_CASES = [
+    *[(b, h, n, S, e, 1, 1) for b in (1, 8)
+      for h, n, e in ((16, 8, 128), (32, 8, 128), (16, 16, 64))
+      for S in (1, 17, 32)],
+    (1, 32, 32, 64, 64, 1, 1), (1, 32, 32, 200, 64, 1, 1),
+    (1, 32, 32, 333, 64, 1, 1), (1, 32, 32, 512, 64, 2, 1),
+    (1, 32, 32, 700, 64, 2, 1), (1, 32, 32, 923, 64, 3, 1),
+    (1, 32, 32, 1024, 64, 4, 1),
+    (4, 32, 32, 923, 64, 3, 1),    # four engine slots in one call
+    (1, 16, 8, 512, 128, 8, 2),    # qwen3, a long cache: g heads together
+    (8, 32, 8, 512, 128, 5, 4),
+    (2, 128, 8, 100, 64, 1, 16),
+]
+
+
+@pytest.mark.parametrize("b,h,n,S,e,nsplit,heads", DECODE_PLAN_CASES)
+def test_decode_plan_at_path_shapes(b, h, n, S, e, nsplit, heads):
+    """One cluster of at most 8 split blocks per (b, kv head), covering
+    the row, split only while b·n blocks leave SMs idle and into at least
+    two load steps; heads a block dividing g; 8 warps only for g = 1."""
+    from repro_torch.kernels import decode_attention as k1
+    chunk, ns, hb, warps = k1.split_plan(b, h, n, S, e)
+    assert (ns, hb) == (nsplit, heads)
+    g = h // n
+    assert 1 <= ns <= k1.MAX_SPLIT and (g % hb) == 0
+    assert (ns - 1) * chunk < S <= ns * chunk
+    assert warps == (8 if hb == g == 1 and S > k1.SHORT_ROW else 4)
+    if ns > 1:
+        step = warps * (32 * 16 // (2 * e)) * (4 if g <= 4 else 2)
+        assert chunk >= k1.SPLIT_STEPS * step
+        assert b * n * (ns - 1) < k1.TARGET_BLOCKS
+    if hb < g:          # a block per query head only on short rows
+        assert S <= k1.SHORT_ROW and ns == 1
+
+
+def test_decode_plan_forced_split_counts_cover_the_row():
+    from repro_torch.kernels import decode_attention as k1
+    for S in (64, 333, 923):
+        for ns in range(1, 9):
+            chunk, got, heads, _ = k1.split_plan(1, 32, 32, S, 64, 2, ns)
+            assert got == ns and heads == 1
+            assert (ns - 1) * chunk < S <= ns * chunk
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (128, 2048, 4096, "int8_mm_wgmma"),    # a zamba2 projection
+    (512, 512, 512, "int8_mm_wgmma"),      # the bench
+    (64, 64, 64, "int8_mm_wgmma"),
+    (128, 256, 192, "int8_mm_wgmma"),
+    (77, 48, 80, "int8_mm_wgmma"),         # M is free
+    (77, 100, 33, "int8_mm"),              # the ragged sweep shape
+    (64, 100, 64, "int8_mm"),              # K not a multiple of 16
+    (64, 64, 40, "int8_mm"),               # N not a multiple of 16
+    (64, 8, 64, "int8_mm"),
+])
+def test_int8_kernel_is_chosen_by_shape(M, K, N, want):
+    """The int8 tensor cores take K and N multiples of 16 (x by TMA,
+    w in 16-byte rows); every other shape runs the __dp4a kernel."""
+    from repro_torch.kernels import int8_matmul as k4
+    assert k4.kernel_for(M, N, K) == want
+
+
 def test_flash_plan_refuses_groups_wider_than_a_tile():
     from repro_torch.kernels import flash_attention as k2
     with pytest.raises(ValueError, match="packs at most"):
