@@ -12,7 +12,10 @@ failure ends the run with a non-zero exit code and no result line:
               kernel issues wgmma (HGMMA) and TMA loads (UTMALDG), K3's
               cp.async (LDGSTS), K1's 16-byte global loads (LDG.E.128)
               and cluster barriers (UCGABAR_ARV/UCGABAR_WAIT), K4's
-              int8_mm_wgmma the integer wgmma (IGMMA) and TMA loads.
+              int8_mm_wgmma the integer wgmma (IGMMA) and TMA loads, K5's
+              bf16 chunk kernel ssd_chunk_mma the tensor-core mma.sync
+              (HMMA) and cp.async (LDGSTS), its ssd_decode 16-byte loads
+              and stores (LDG.E.128, STG.E.128).
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
@@ -25,11 +28,16 @@ failure ends the run with a non-zero exit code and no result line:
               zamba2 engine's shapes (split key range) and with kv_len < sk
               or 0; K3 over every split plan (nq in {1, 16}, N in {128,
               5000, 65536}, k in {8, 112, 131, 256}); K5 (SSD chunk) at
-              zamba2's (64 heads, P = N = 64) for Q in {1, 77, 128, 256} and
-              nc in {1, 2}, K4 (int8 product, on no path) at the reference
-              sweep's, the bench's (512³) and one zamba2 projection's
-              shapes on int8_mm_wgmma (both timed), and a ragged shape on
-              the __dp4a int8_mm.
+              zamba2's (64 heads, P = N = 64, one group) for the engine's
+              seven chunk lengths Q in {1, 4, 60, 64, 72, 77, 128} (nc =
+              1) and Q = 256 with nc in {1, 2}, with the plan's kernel and
+              each kernel forced (ssd_decode where Q <= 32, ssd_chunk_mma
+              in bf16, ssd_chunk_fwd), in bf16 (each timed) and f32, and
+              Q in {1, 77, 128} with nc = 2 (checked, not timed); K4
+              (int8 product, on no path) at the reference sweep's,
+              the bench's (512³) and one zamba2 projection's shapes on
+              int8_mm_wgmma (both timed), and a ragged shape on the __dp4a
+              int8_mm.
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -80,7 +88,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor cores
               torch.float32: 67e12,           # f32 outside the tensor cores
-              torch.int8: 1979e12}            # int8 tensor cores (TOP/s)
+              torch.int8: 1979e12,            # int8 tensor cores (TOP/s)
+              # f32 accuracy on the TF32 tensor cores (495 TFLOP/s) by
+              # three products of split operands, as K5's ssd_chunk_mma
+              "tf32x3": 495e12 / 3}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # K5's outputs are f32 in both input types: sums of up to 256 products in
 # another order than the plain version's (the reference sweep's tolerance)
@@ -258,10 +269,12 @@ def topk_case(nq, N, d, k, g, queries=None, corpus=None):
                 bound=bnd, tol=1e-4, scores=lambda: q @ c.T)
 
 
-def ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g):
+def ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g, kernel=None,
+             splits=None):
     """zamba2's decays (A = -linspace(1, 16, H)); with ``broadcast`` B and
     C are one group expanded to every head (stride 0), as the model
-    passes them."""
+    passes them.  ``kernel`` and ``splits`` force the launch (else
+    ``ssd_chunk.plan``'s)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as k5
     x = rand((b, nc, Q, H, P), dtype, g)
@@ -273,10 +286,8 @@ def ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g):
         B, C = (t.expand(-1, -1, -1, H, -1) for t in (B, C))
     args = (x, dt, B, C, dA)
     # the scores C·Bᵀ at the inputs' type's peak, the rest on f32 operands
-    scores, rest = k5.flops(x, B)
-    bnd = bound_ms(k5.bytes_moved(*args), (scores, dtype),
-                   (rest, torch.float32))
-    return dict(kernel=lambda: k5.ssd_chunk(*args),
+    bnd = bound_ms(k5.bytes_moved(*args), *k5.flops(x, B))
+    return dict(kernel=lambda: k5.run(*args, kernel=kernel, splits=splits),
                 plain=lambda: ref.ssd_chunk_ref(*args),
                 library=None, bound=bnd, tol=SSD_TOL, pair=True)
 
@@ -361,16 +372,22 @@ def phase_build():
     # loads (UTMALDG) in K2's bf16 kernel, cp.async (LDGSTS) in K3's;
     # 16-byte loads (LDG.E.128) and the cluster barrier of the split merge
     # (UCGABAR_ARV/WAIT) in K1's; the integer wgmma (IGMMA) and TMA loads
-    # in K4's int8_mm_wgmma.  Each named kernel must issue each opcode.
+    # in K4's int8_mm_wgmma; the tensor-core mma.sync (HMMA) and cp.async
+    # in K5's ssd_chunk_mma, 16-byte loads and stores in its ssd_decode.
+    # Each named kernel must issue each opcode.
     must = {"flash_fwd_wgmma": ("HGMMA", "UTMALDG"),
             "topk_partial": ("LDGSTS",),
             "decode_attn": ("LDG.E.128", "UCGABAR_ARV", "UCGABAR_WAIT"),
-            "int8_mm_wgmma": ("IGMMA", "UTMALDG")}
+            "int8_mm_wgmma": ("IGMMA", "UTMALDG"),
+            "ssd_chunk_mma": ("HMMA", "LDGSTS"),
+            "ssd_decode": ("LDG.E.128", "STG.E.128")}
     for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG")),
                           ("topk_retrieval", ("LDGSTS",)),
                           ("decode_attention", ("LDG.E.128", "UCGABAR_ARV",
                                                 "UCGABAR_WAIT")),
-                          ("int8_matmul", ("IGMMA", "UTMALDG"))):
+                          ("int8_matmul", ("IGMMA", "UTMALDG")),
+                          ("ssd_chunk", ("HMMA", "LDGSTS", "LDG.E.128",
+                                         "STG.E.128"))):
         counts = _build.sass_counts(name, opcodes)
         say(f"[build] {name} SASS: " + " | ".join(
             f"{fn}: " + ", ".join(f"{c} {op}" for op, c in ops_.items())
@@ -554,20 +571,43 @@ def phase_kernels():
     say(f"[kernels] topk_retrieval exact scores with ties (k=256 of 4096; "
         f"112 of 128; 8 of 5000; 131 of 65536): ids equal, max|err| "
         f"{err:.2e}")
-    # K5: zamba2-1.2b, 64 heads, P = N = 64, one group: decode (Q = 1), a
-    # 77-token last prefill chunk, a 128-token chunk, a 300-token prefill
-    # padded to nc = 2 chunks of 256
-    for Q in (1, 77, 128, 256):
-        for nc in (1, 2):
-            for dt in (torch.bfloat16, torch.float32):
-                c = ssd_case(1, nc, Q, 64, 64, 64, dt, True, g)
-                err = check_case(c, f"ssd_chunk Q={Q} nc={nc} {dt}")
+    # K5: zamba2-1.2b, 64 heads, P = N = 64, one group: the engine's chunk
+    # lengths (decode Q = 1, a 4-token tail, the last prefill chunks of
+    # 700/512/200/333-token prompts, full 128-token chunks) and a 300-token
+    # prefill padded to nc = 2 chunks of 256, timed in bf16; two chunks at
+    # 1, 77 and 128, checked.  The plan's kernel, then each kernel forced
+    # (ssd_chunk_fwd is the port's first K5, unchanged).  ssd_sweep.py
+    # measures the plan's threshold and slice counts.
+    from repro_torch.kernels import ssd_chunk as k5
+    engine = ((1, 1), (4, 1), (60, 1), (64, 1), (72, 1), (77, 1), (128, 1),
+              (256, 1), (256, 2))
+    for Q, nc in engine + ((1, 2), (77, 2), (128, 2)):
+        for dt in (torch.bfloat16, torch.float32):
+            timing = dt == torch.bfloat16 and (Q, nc) in engine
+            plan = k5.plan(1, nc, Q, 64, 64, 64, dt)
+            c = ssd_case(1, nc, Q, 64, 64, 64, dt, True, g)
+            err = check_case(c, f"ssd_chunk Q={Q} nc={nc} {dt}")
+            errs["ssd_chunk"] = max(errs["ssd_chunk"], err)
+            line = (f"[kernels] ssd_chunk zamba2 Q={Q} nc={nc} {str(dt)[6:]} "
+                    f"({plan.kernel}, splits {plan.splits}): max|err| "
+                    f"{err:.2e} <= {SSD_TOL:.0e}")
+            if timing:
+                line += " | " + fmt(measure(c))
+            forced = []
+            for kern in ("ssd_decode", "ssd_chunk_mma", "ssd_chunk_fwd"):
+                if ((kern == "ssd_decode" and Q > k5.DECODE_LIMIT_Q)
+                        or (kern == "ssd_chunk_mma" and dt != torch.bfloat16)):
+                    continue
+                c = ssd_case(1, nc, Q, 64, 64, 64, dt, True, g, kernel=kern)
+                err = check_case(c, f"ssd_chunk {kern} Q={Q} nc={nc} {dt}")
                 errs["ssd_chunk"] = max(errs["ssd_chunk"], err)
-                line = (f"[kernels] ssd_chunk zamba2 Q={Q} nc={nc} "
-                        f"{str(dt)[6:]}: max|err| {err:.2e} <= {SSD_TOL:.0e}")
-                if dt == torch.bfloat16:
-                    line += " | " + fmt(measure(c))
-                say(line)
+                if timing:
+                    forced.append(f"{kern} {1e3 * timed(c['kernel'])[0]:.1f}")
+            say(line)
+            if forced:
+                say(f"[kernels] ssd_chunk zamba2 Q={Q} nc={nc} bf16, each "
+                    f"kernel forced (within {SSD_TOL:.0e}), us: "
+                    + ", ".join(forced))
     c = ssd_case(2, 3, 32, 4, 16, 8, torch.float32, False, g)
     err = check_case(c, "ssd_chunk one group per head")
     say(f"[kernels] ssd_chunk b=2 nc=3 Q=32 H=4 P=16 N=8, a group per head: "

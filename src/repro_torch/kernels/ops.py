@@ -51,7 +51,8 @@ KERNELS = (
            "src/repro/kernels/int8_matmul.py:22",
            ("int8_mm_wgmma", "int8_mm")),
     Kernel("ssd_chunk", _ssd,
-           "src/repro/kernels/mamba2_scan.py:23", ("ssd_chunk_fwd",)),
+           "src/repro/kernels/mamba2_scan.py:23",
+           ("ssd_decode", "ssd_chunk_mma", "ssd_chunk_fwd")),
 )
 
 

@@ -167,11 +167,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                and e.time_range.end > e.time_range.start]
     by_cat: Dict[str, float] = collections.defaultdict(float)
     by_name: Dict[str, List[float]] = collections.defaultdict(lambda: [0, 0])
+    by_port: Dict[str, List[float]] = collections.defaultdict(lambda: [0, 0])
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         by_cat[category(e.name)] += ms
         by_name[e.name][0] += ms
         by_name[e.name][1] += 1
+        port = max((k for k in PORT_KERNELS if k in e.name), key=len,
+                   default=None)
+        if port is not None:
+            by_port[port][0] += ms
+            by_port[port][1] += 1
     busy = _union_ms([(e.time_range.start, e.time_range.end)
                       for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
@@ -187,6 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "kernel_ms_by_category": dict(by_cat),
         "top_kernels": [{"name": n[:90], "ms": v[0], "launches": v[1]}
                         for n, v in top],
+        "port_kernels": {n: {"ms": v[0], "launches": v[1]}
+                         for n, v in sorted(by_port.items())},
     }
     print(json.dumps(out, indent=1))
     return out

@@ -341,3 +341,80 @@ def test_ssd_kernel_matches_plain(cuda, b, nc, Q, H, P, N, groups, dtype):
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(y), _f32(wy), atol=2e-4, rtol=2e-4)
     np.testing.assert_allclose(_f32(S), _f32(wS), atol=2e-4, rtol=2e-4)
+
+
+def _ssd_close(args, kernel=None, splits=None):
+    from repro_torch.kernels import ssd_chunk as k5
+    y, S = k5.run(*args, kernel=kernel, splits=splits)
+    wy, wS = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    what = f"{kernel} splits={splits}"
+    np.testing.assert_allclose(_f32(y), _f32(wy), atol=2e-4, rtol=2e-4,
+                               err_msg=what)
+    np.testing.assert_allclose(_f32(S), _f32(wS), atol=2e-4, rtol=2e-4,
+                               err_msg=what)
+
+
+def _ssd_kernels(Q, dtype):
+    """Every kernel that takes a chunk of Q tokens of ``dtype`` at widths
+    that are multiples of 8."""
+    from repro_torch.kernels import ssd_chunk as k5
+    return ((["ssd_decode"] if Q <= k5.DECODE_LIMIT_Q else [])
+            + (["ssd_chunk_mma"] if dtype == "bfloat16" else [])
+            + ["ssd_chunk_fwd"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,nc", [(1, 1), (4, 1), (60, 1), (64, 1), (72, 1),
+                                  (77, 1), (128, 1), (256, 2)])
+@pytest.mark.parametrize("groups", [1, None])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_engine_shapes_every_kernel(cuda, Q, nc, groups, dtype):
+    """zamba2's widths (64 heads, P = N = 64) at the engine's chunk lengths
+    and the 300-token prefill's two chunks of 256: the plan's kernel and
+    every kernel forced, with B/C one group broadcast to every head (stride
+    0) and one group per head."""
+    args = _ssd_inputs(np.random.default_rng(25), 1, nc, Q, 64, 64, 64,
+                       dtype, cuda, groups)
+    _ssd_close(args)
+    for kernel in _ssd_kernels(Q, dtype):
+        _ssd_close(args, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 24, 31, 32, 33])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_every_kernel_around_the_threshold(cuda, Q, dtype):
+    """Each kernel forced at every chunk length near the plan's threshold
+    (DECODE_MAX_Q) and ssd_decode's limit (32), on 64 heads with shared B/C
+    and on 6 heads with a group each; ssd_decode with even and uneven
+    slices of S's rows."""
+    from repro_torch.kernels import ssd_chunk as k5
+    rng = np.random.default_rng(26)
+    shared = _ssd_inputs(rng, 1, 1, Q, 64, 64, 64, dtype, cuda, 1)
+    own = _ssd_inputs(rng, 2, 2, Q, 6, 32, 16, dtype, cuda)
+    for args in (shared, own):
+        for kernel in _ssd_kernels(Q, dtype):
+            _ssd_close(args, kernel)
+    if Q <= k5.DECODE_LIMIT_Q:
+        for splits in (1, 3, 4, 8):
+            _ssd_close(shared, "ssd_decode", splits)
+        _ssd_close(own, "ssd_decode", 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_strongest_decay_is_finite(cuda, dtype):
+    """zamba2's strongest decay (A = -16) on every head over a full
+    256-token chunk: cs reaches about -3000, and every kernel still gives
+    finite outputs within 2e-4 of the plain version (the mask comes before
+    exp)."""
+    from repro_torch.kernels import ssd_chunk as k5
+    x, dt, B, C, _ = _ssd_inputs(np.random.default_rng(27), 1, 1, 256, 64,
+                                 64, 64, dtype, cuda, 1)
+    args = (x, dt, B, C, dt * -16.0)
+    assert float(torch.cumsum(args[4].double(), 2).min()) < -2000
+    for kernel in _ssd_kernels(256, dtype):
+        y, S = k5.run(*args, kernel=kernel)
+        assert bool(y.isfinite().all()) and bool(S.isfinite().all()), kernel
+        _ssd_close(args, kernel)

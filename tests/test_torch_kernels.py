@@ -246,6 +246,11 @@ def _ssd_inputs(rng, b, nc, Q, H, P, N):
     (2, 1, 16, 2, 8, 8),
     (1, 1, 1, 4, 16, 8),       # decode: one token
     (1, 2, 77, 4, 16, 8),      # the last prefill chunk of a 333-token prompt
+    # the engine's other ragged chunks: a 4-token tail, the last chunks of
+    # 700- and 200-token prompts (prefill chunks of 128)
+    (1, 1, 4, 4, 16, 8),
+    (1, 1, 60, 4, 16, 8),
+    (1, 1, 72, 4, 16, 8),
 ])
 def test_ssd_plain_matches_pallas(b, nc, Q, H, P, N):
     arrays = _ssd_inputs(np.random.default_rng(19), b, nc, Q, H, P, N)
@@ -486,3 +491,147 @@ def test_ptxas_report_names_each_kernel():
     assert _build.ptxas_report(out) == [
         "topk_merge<4>: Used 96 registers, used 1 barriers, 16 bytes stack "
         "frame, 8 bytes spill stores, 8 bytes spill loads"]
+
+
+# -- host-side plan of the redesigned K5 (pure Python) ------------------------
+
+from repro_torch.kernels import ssd_chunk as k5  # noqa: E402
+
+
+@pytest.mark.parametrize("Q,dtype,want", [
+    (1, torch.bfloat16, "ssd_decode"), (4, torch.bfloat16, "ssd_decode"),
+    (k5.DECODE_MAX_Q, torch.bfloat16, "ssd_decode"),
+    (k5.DECODE_MAX_Q + 1, torch.bfloat16, "ssd_chunk_mma"),
+    (60, torch.bfloat16, "ssd_chunk_mma"), (128, torch.bfloat16,
+                                            "ssd_chunk_mma"),
+    (256, torch.bfloat16, "ssd_chunk_mma"),
+    (1, torch.float32, "ssd_decode"), (4, torch.float32, "ssd_decode"),
+    (k5.DECODE_MAX_Q + 1, torch.float32, "ssd_chunk_fwd"),
+    (77, torch.float32, "ssd_chunk_fwd"), (256, torch.float32,
+                                           "ssd_chunk_fwd"),
+])
+def test_ssd_plan_picks_the_kernel_by_length_and_type(Q, dtype, want):
+    """Short chunks take the decode kernel in either type; longer bf16
+    chunks the tensor-core kernel, longer f32 ones the CUDA-core one."""
+    assert k5.plan(1, 1, Q, 64, 64, 64, dtype).kernel == want
+
+
+def test_ssd_plan_widths_off_the_vector_take_the_cuda_core_kernel():
+    """P or N not a multiple of 8 cannot take 16-byte rows; the decode and
+    tensor-core kernels refuse such a shape when forced."""
+    for Q in (1, 128):
+        assert k5.plan(1, 1, Q, 4, 12, 8,
+                       torch.bfloat16).kernel == "ssd_chunk_fwd"
+    for kernel in ("ssd_decode", "ssd_chunk_mma"):
+        with pytest.raises(ValueError):
+            k5.plan(1, 1, 4, 4, 12, 8, torch.bfloat16, kernel=kernel)
+    with pytest.raises(ValueError):       # tensor cores: bf16 only
+        k5.plan(1, 1, 64, 4, 16, 8, torch.float32, kernel="ssd_chunk_mma")
+    with pytest.raises(ValueError):       # one scan element per lane
+        k5.plan(1, 1, k5.DECODE_LIMIT_Q + 1, 4, 16, 8, torch.float32,
+                kernel="ssd_decode")
+
+
+SSD_PLAN_SHAPES = [
+    # the engine's seven shapes and the 300-token prefill's, zamba2 widths
+    *[(1, 1, Q, 64, 64, 64) for Q in (1, 4, 60, 64, 72, 77, 128)],
+    (1, 2, 256, 64, 64, 64),
+    # the tests' shapes, narrow widths
+    (2, 3, 32, 4, 16, 8), (1, 2, 64, 8, 32, 16), (2, 1, 16, 2, 8, 8),
+    (1, 1, 5, 3, 8, 24),
+]
+
+
+def _ssd_all_plans(b, nc, Q, H, P, N):
+    """The plan's own choice in both types, and every kernel forced at the
+    shape, ssd_decode with every split count it takes."""
+    plans = [k5.plan(b, nc, Q, H, P, N, dt)
+             for dt in (torch.bfloat16, torch.float32)]
+    plans.append(k5.plan(b, nc, Q, H, P, N, torch.bfloat16,
+                         kernel="ssd_chunk_fwd"))
+    for splits in k5.mma_slices(Q, P, N):
+        plans.append(k5.plan(b, nc, Q, H, P, N, torch.bfloat16,
+                             kernel="ssd_chunk_mma", splits=splits))
+    if Q <= k5.DECODE_LIMIT_Q:
+        for splits in range(1, min(k5.DECODE_SPLITS[-1], N) + 1):
+            plans.append(k5.plan(b, nc, Q, H, P, N, torch.float32,
+                                 kernel="ssd_decode", splits=splits))
+    return plans
+
+
+def _tiles_once(parts, keys, P):
+    """Each key's column ranges tile [0, P) exactly once."""
+    cols = {}
+    for *key, c0, c1 in parts:
+        cols.setdefault(tuple(key), []).append((c0, c1))
+    assert sorted(cols) == sorted(keys)
+    for ranges in cols.values():
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == P
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("b,nc,Q,H,P,N", SSD_PLAN_SHAPES)
+def test_ssd_plan_covers_every_cell_once(b, nc, Q, H, P, N):
+    """Every (batch, chunk, head) gets each of its y rows and each of its
+    S rows, every column of them, from exactly one block, under every plan
+    and forced plan."""
+    cells = [(bi, ci, h) for bi in range(b) for ci in range(nc)
+             for h in range(H)]
+    for p in _ssd_all_plans(b, nc, Q, H, P, N):
+        ys, ss = k5.work(p, b, nc, Q, H, N, P)
+        _tiles_once(ys, [(*c, i) for c in cells for i in range(Q)], P)
+        _tiles_once(ss, [(*c, n) for c in cells for n in range(N)], P)
+
+
+@pytest.mark.parametrize("PT", [1, 2, 4, 8])
+@pytest.mark.parametrize("N", [8, 24, 64])
+def test_ssd_mma_units_deal_each_stripe_once(PT, N):
+    """ssd_chunk_mma's dealing of 16-row units to its 8 warps (the
+    kernel's work loop, mirrored by mma_units) gives every y row stripe
+    and every S row stripe to exactly one warp, at every chunk length and
+    slice width, the longest y stripes first."""
+    W = k5.MMA_WARPS
+    for Q in range(1, k5.MAX_Q + 1):
+        ny, ns = -(-Q // 16), -(-N // 16)
+        dealt = k5.mma_units(Q, N, PT)
+        assert len(dealt) == W
+        assert sorted(u for w in dealt for u in w) == list(range(ny + ns))
+        # in dealing order (round r gives warps 0..7, then 7..0), the
+        # units' costs never rise: y stripe r costs (2r + 4) steps of
+        # scores and products, an S stripe 2 + 3 PT products per 8 keys
+        order = sorted((r * W + (W - 1 - w if r & 1 else w), u)
+                       for w in range(W) for r, u in enumerate(dealt[w]))
+        cost = [(2 * u + 4) * 2 * (4 + 3 * PT) if u < ny
+                else (16 * ny // 8) * (2 + 3 * PT) for _, u in order]
+        assert cost == sorted(cost, reverse=True), (Q, order)
+
+
+def test_ssd_plan_spreads_a_decode_step_over_the_card():
+    """zamba2's decode step (64 heads) gives every one of the H100's 132
+    SMs a block, in one wave, so the 1 MB of S is written from every SM; a
+    card with half the SMs gets half the slices."""
+    p = k5.plan(1, 1, 1, 64, 64, 64, torch.bfloat16)
+    gx, gy, gz = p.grid
+    assert p.kernel == "ssd_decode"
+    assert 132 <= gx * gy * gz <= k5.DECODE_BLOCKS_PER_SM * 132
+    assert p.grid == (64, 8, 1) and p.splits == 8
+    assert k5.plan(1, 1, 1, 64, 64, 64, torch.bfloat16,
+                   card=(66, k5.H100[1])).splits == 4
+
+
+def test_ssd_mma_plan_fits_shared_memory_and_fills_the_card():
+    """ssd_chunk_mma slices P only as far as a block's 227 KB and the 132
+    SMs need: zamba2's 128-token chunk takes two slices (128 blocks), the
+    256-token chunks at least two (one slice would need 258 KB); a slice
+    that does not fit is refused."""
+    sms, smem = k5.H100
+    for Q, nc in ((60, 1), (128, 1), (256, 1), (256, 2)):
+        p = k5.plan(1, nc, Q, 64, 64, 64, torch.bfloat16)
+        assert p.kernel == "ssd_chunk_mma"
+        assert k5.mma_smem(Q, 64, 64 // p.splits) <= smem
+        assert p.splits == 2 and 64 * nc * p.splits >= sms * 7 // 8, p
+    assert k5.mma_smem(256, 64, 64) > smem
+    with pytest.raises(ValueError):
+        k5.plan(1, 1, 256, 64, 64, 64, torch.bfloat16,
+                kernel="ssd_chunk_mma", splits=1)
