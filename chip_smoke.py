@@ -37,12 +37,22 @@ failure ends the run with a non-zero exit code and no result line:
               (int8 product, on no path) at the reference sweep's,
               the bench's (512³) and one zamba2 projection's shapes on
               int8_mm_wgmma (both timed), and a ragged shape on the __dp4a
-              int8_mm.
+              int8_mm.  K1 and K2 in window mode at zamba2-long's shapes
+              (a 4096-slot ring, 32 heads of 64: K1 on a ring of 2000,
+              4608 and 524288 positions, K2 with a 128-token chunk before,
+              across and after the wrap) and at the cross shapes (whisper's
+              1500 x 1500 encoder, cross prefill of 16 queries over 1500
+              frames or 1601 patches, cross decode over them), each timed
+              beside SDPA with an explicit boolean mask.
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
-              layer) through ``ServingEngine``; finite, well-shaped outputs
-              of every RAG stage model at the published widths.
+              layer) through ``ServingEngine``; the same zamba2 at max_len
+              40000, whose 4096-slot ring a 4200-token prompt wraps;
+              reduced whisper and llama-3.2-vision with xgate at 0.5 and a
+              seeded source (greedy ids equal, and a zero source moves the
+              logits); finite, well-shaped outputs of every RAG stage model
+              at the published widths.
 4. serve    — one isolated W2 query with straggler re-dispatch off (every
               stage runs once, so its launch counts are the query's own),
               then a ``--serve --spec-decode`` run of two staggered
@@ -60,9 +70,20 @@ failure ends the run with a non-zero exit code and no result line:
               tokens, 24 new tokens each, at most four at once) from
               counters at 0; every request must finish and K1, K2 and K5
               must have launched.
+   zamba2 long — the same model through ``ServingEngine(max_len=524288)``
+              (the long_500k length: a 4096-slot ring), one request of a
+              4608-token prompt in chunks of 128 and 32 new tokens; K1 and
+              K2 must have launched in window mode, K5 too.
+   whisper, vlm — whisper-large-v3 whole and llama-3.2-vision-90b at
+              every width and 10 of its 100 layers (bf16, xgate 0.5)
+              through ``build_model``: a 16-token prefill with a seeded
+              source (1500 frames, 1601 patch embeddings), then 24 greedy
+              decode steps; K2 must have run non-causal (encoder, cross
+              prefill) and K1 over the whole source.
 5. timing   — each kernel, its plain version and the yardstick replayed at
-              every shape the isolated W2 query and the zamba2 engine run
-              gave it, weighted by launches.
+              every shape the isolated W2 query, the zamba2 engine and
+              long-context runs and the whisper and vlm runs gave it,
+              weighted by launches.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one GPU, no network.
@@ -93,6 +114,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor cores
               # three products of split operands, as K5's ssd_chunk_mma
               "tf32x3": 495e12 / 3}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# K1/K2 in bf16 where every query sees at least MANY_KEYS keys (the window
+# and cross shapes): (atol, rtol).  Over that many keys the probabilities'
+# rounding averages out, and what is left is the output's rounding, at most
+# one bf16 step (2^-7 of the value), so a key let in or left out at a
+# window's edge shows.  Rows of fewer keys keep TOL: there one rounded
+# probability can move an output near 0 by 2^-9 of a value.
+MANY_KEYS = 128
+MANY_KEYS_TOL = (2e-3, 1e-2)
 # K5's outputs are f32 in both input types: sums of up to 256 products in
 # another order than the plain version's (the reference sweep's tolerance)
 SSD_TOL = 2e-4
@@ -184,13 +213,30 @@ def max_err(a, b):
 
 
 def check_close(got, want, tol, what):
-    """|got - want| <= tol + tol * |want| elementwise (numpy's allclose
-    with atol = rtol = tol, as tests/test_kernels.py); -> max |err|."""
+    """|got - want| <= atol + rtol * |want| elementwise (numpy's allclose;
+    ``tol`` is atol = rtol, as tests/test_kernels.py, or an (atol, rtol)
+    pair); -> max |err|."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
     got, want = got.float(), want.float()
-    bad = (got - want).abs() > tol + tol * want.abs()
+    bad = (got - want).abs() > atol + rtol * want.abs()
     err = max_err(got, want)
-    assert not bool(bad.any()), f"{what}: max|err| {err:.3e} over {tol:.0e}"
+    assert not bool(bad.any()), (f"{what}: max|err| {err:.3e} over "
+                                 f"{tol_str(tol)}")
     return err
+
+
+def tol_str(tol):
+    if isinstance(tol, tuple):
+        return f"{tol[0]:.0e} + {tol[1]:.0e}·|want|"
+    return f"{tol:.0e}"
+
+
+def attention_tol(dtype, fewest_keys):
+    """K1/K2's limit for a call whose rows each see ``fewest_keys`` keys
+    or more."""
+    if dtype == torch.bfloat16 and fewest_keys >= MANY_KEYS:
+        return MANY_KEYS_TOL
+    return TOL[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -202,57 +248,83 @@ def rand(shape, dtype, g):
 
 
 def decode_case(b, h, n, S, e, dtype, g, lengths=None, nsplit=None,
-                slots=None):
+                slots=None, window=0, ring_end=None):
     """``nsplit`` forces the split count (else ``split_plan``'s);
     ``slots`` > S makes the caches the S-position prefix of a longer one,
-    as the layers pass them (a batch stride that is not S·n·e)."""
+    as the layers pass them (a batch stride that is not S·n·e).  With
+    ``window`` > 0, the window mode over an S-slot ring after positions
+    0..ring_end-1 were written, the query at ring_end - 1."""
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import ref
     q = rand((b, h, e), dtype, g)
     kc, vc = (rand((b, slots or S, n, e), dtype, g)[:, :S] for _ in range(2))
     lens = torch.tensor(lengths or [S] * b, dtype=torch.int32, device="cuda")
+    wm, mask = {}, None
+    fewest = min(lengths or [S])
+    if window > 0:
+        wm = dict(kv_positions=ref.ring_positions(S, ring_end, "cuda"),
+                  window=window,
+                  q_pos=torch.full((b,), ring_end - 1, dtype=torch.int32,
+                                   device="cuda"))
+        # SDPA's boolean mask (b, 1, 1, S): the same visible slots
+        mask = ref.visible(wm["q_pos"][:, None], wm["kv_positions"],
+                           window)[:, None]
+        fewest = min(fewest, int(mask.sum(-1).min()))
 
     def library():      # SDPA over the (b, n, S, e) view: all rows length S
         return F.scaled_dot_product_attention(
             q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-            enable_gqa=True)[:, :, 0]
-    bnd = bound_ms(k1.bytes_moved(q, kc, lens), (k1.flops(q, lens, S), dtype))
-    return dict(kernel=lambda: k1.run(q, kc, vc, lens, nsplit),
-                plain=lambda: ref.decode_attention_ref(q, kc, vc, lens),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+    bnd = bound_ms(k1.bytes_moved(q, kc, lens, **wm),
+                   (k1.flops(q, lens, S, **wm), dtype))
+    return dict(kernel=lambda: k1.run(q, kc, vc, lens, nsplit, **wm),
+                plain=lambda: ref.decode_attention_ref(q, kc, vc, lens, **wm),
                 library=library if lengths is None else None, bound=bnd,
-                tol=TOL[dtype])
+                tol=attention_tol(dtype, fewest))
 
 
 def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
-               kv_len=None):
+               kv_len=None, window=0):
+    """With ``window`` > 0, the window mode over an sk-slot ring after
+    positions 0..q_offset+sq-1 were written (the chunk's own slots
+    included, as the model writes them before it attends)."""
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ref
     q = rand((b, sq, h, e), dtype, g)
     k, v = rand((b, sk, n, e), dtype, g), rand((b, sk, n, e), dtype, g)
     kv_len = sk if kv_len is None else kv_len
+    wm = {}
+    if window > 0:
+        wm = dict(window=window, kv_positions=ref.ring_positions(
+            sk, q_offset + sq, "cuda"))
     # SDPA's is_causal is top-left aligned, i.e. q_offset 0; otherwise a
     # boolean mask
-    plain_causal = causal and q_offset == 0 and kv_len == sk
+    plain_causal = causal and q_offset == 0 and kv_len == sk and not wm
     mask = None
-    if causal and not plain_causal:
+    if wm:
+        mask = ref.visible(torch.arange(sq, device="cuda") + q_offset,
+                           wm["kv_positions"], window, causal)
+    elif causal and not plain_causal:
         mask = (torch.arange(sq, device="cuda")[:, None] + q_offset
                 >= torch.arange(sk, device="cuda")[None])
     if kv_len < sk:
         valid = torch.arange(sk, device="cuda")[None] < kv_len
         mask = valid if mask is None else mask & valid
+    fewest = (int(mask.sum(-1).min()) if mask is not None
+              else 1 if causal else kv_len)
 
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, is_causal=plain_causal,
             enable_gqa=True).transpose(1, 2)
-    bnd = bound_ms(k2.bytes_moved(q, k, kv_len),
-                   (k2.flops(q, kv_len, causal, q_offset), dtype))
-    return dict(kernel=lambda: k2.flash_attention(
-                    q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len),
-                plain=lambda: ref.flash_attention_ref(
-                    q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len),
-                library=library, bound=bnd, tol=TOL[dtype])
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, **wm)
+    bnd = bound_ms(k2.bytes_moved(q, k, kv_len, causal=causal,
+                                  q_offset=q_offset, **wm),
+                   (k2.flops(q, kv_len, causal, q_offset, **wm), dtype))
+    return dict(kernel=lambda: k2.flash_attention(q, k, v, **kw),
+                plain=lambda: ref.flash_attention_ref(q, k, v, **kw),
+                library=library, bound=bnd, tol=attention_tol(dtype, fewest))
 
 
 def topk_case(nq, N, d, k, g, queries=None, corpus=None):
@@ -423,7 +495,7 @@ def phase_kernels():
                             errs["decode_attention"], err)
                     line = (f"[kernels] decode_attention {who} b={b} S={S} "
                             f"{str(dt)[6:]}: max|err| {err:.2e} <= "
-                            f"{c['tol']:.0e}")
+                            f"{tol_str(c['tol'])}")
                     if dt == torch.bfloat16:
                         line += " | " + fmt(measure(c))
                     say(line)
@@ -449,7 +521,7 @@ def phase_kernels():
                 errs["decode_attention"] = max(errs["decode_attention"], err)
             line = (f"[kernels] decode_attention zamba2 engine S={S} "
                     f"{str(dt)[6:]} (plan {plan}): max|err| {err:.2e} <= "
-                    f"{c['tol']:.0e}")
+                    f"{tol_str(c['tol'])}")
             if dt == torch.bfloat16:
                 line += " | " + fmt(measure(c))
             say(line)
@@ -489,7 +561,7 @@ def phase_kernels():
                                                   err)
                 line = (f"[kernels] flash_attention {who} b={b} sq={sq} "
                         f"sk={sk} q_offset={off} {str(dt)[6:]}: max|err| "
-                        f"{err:.2e} <= {c['tol']:.0e}")
+                        f"{err:.2e} <= {tol_str(c['tol'])}")
                 if dt == torch.bfloat16:
                     line += " | " + fmt(measure(c))
                 say(line)
@@ -634,7 +706,65 @@ def phase_kernels():
                 line += (" | " + fmt(k4_time)
                          + " (library: _int_mm, no epilogue)")
             say(line)
+    check_window_and_cross(g, errs)
     return errs, k4_time
+
+
+def check_window_and_cross(g, errs):
+    """K1/K2's window mode at zamba2-long's shapes (a 4096-slot ring, 32
+    heads of 64, b = 1) and their cross-attention shapes (whisper-large-v3:
+    1500 frames, 20 heads of 64; llama-3.2-vision: 1601 patches, 64 heads
+    over 8 kv heads of 128), each against its plain version in bf16 (timed,
+    beside SDPA with an explicit boolean ``attn_mask`` and ``enable_gqa``)
+    and f32.  Every row of these calls sees at least MANY_KEYS keys, so
+    bf16 is held to MANY_KEYS_TOL; a window of 256 of the 4096 slots makes
+    a key at the window's edge weigh 1/256 of its row."""
+    cases = []
+    # K1, one new token over the ring: not yet full, full and wrapped; a
+    # narrow window
+    for end, window in ((2000, 4096), (4608, 4096), (524288, 4096),
+                        (524288, 256)):
+        cases.append((f"decode_attention window={window} W=4096 ring of "
+                      f"{end} positions", "decode_attention",
+                      lambda dt, end=end, window=window: decode_case(
+                          1, 32, 32, 4096, 64, dt, g, window=window,
+                          ring_end=end)))
+    # K2, a 128-token prefill chunk over the ring: before the wrap, across
+    # it, wrapped; a narrow window
+    for off, window in ((1920, 4096), (4000, 4096), (4480, 4096),
+                        (4480, 256)):
+        cases.append((f"flash_attention window={window} sq=128 over 4096 "
+                      f"slots q_offset={off}", "flash_attention",
+                      lambda dt, off=off, window=window: flash_case(
+                          1, 128, 32, 4096, 32, 64, dt, g, q_offset=off,
+                          window=window)))
+    # cross shapes: whisper's encoder, then cross prefill and decode
+    cases += [
+        ("flash_attention whisper encoder 1500x1500 non-causal",
+         "flash_attention", lambda dt: flash_case(
+             1, 1500, 20, 1500, 20, 64, dt, g, causal=False)),
+        ("flash_attention whisper cross prefill sq=16 sk=1500",
+         "flash_attention", lambda dt: flash_case(
+             1, 16, 20, 1500, 20, 64, dt, g, causal=False)),
+        ("flash_attention vlm cross prefill sq=16 sk=1601 g=8 e=128",
+         "flash_attention", lambda dt: flash_case(
+             1, 16, 64, 1601, 8, 128, dt, g, causal=False)),
+        ("decode_attention whisper cross S=1500", "decode_attention",
+         lambda dt: decode_case(1, 20, 20, 1500, 64, dt, g)),
+        ("decode_attention vlm cross S=1601 g=8 e=128", "decode_attention",
+         lambda dt: decode_case(1, 64, 8, 1601, 128, dt, g)),
+    ]
+    for what, name, make in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            c = make(dt)
+            err = check_close(c["kernel"](), c["plain"](), c["tol"],
+                              f"{what} {dt}")
+            line = (f"[kernels] {what} {str(dt)[6:]}: max|err| {err:.2e} "
+                    f"<= {tol_str(c['tol'])}")
+            if dt == torch.bfloat16:
+                errs[name] = max(errs[name], err)
+                line += " | " + fmt(measure(c))
+            say(line)
 
 
 def phase_models():
@@ -675,6 +805,7 @@ def phase_models():
         f"({len(gpu_ids)} tokens), prefill logits max|err| {lerr:.2e} <= 1e-4,"
         f" embeddings {eerr:.2e} <= 1e-5, search ids equal")
     check_reduced_zamba2()
+    check_reduced_ring_and_cross()
     # published widths: every stage model gives finite, well-shaped output
     tok, emb, rr, rw, chat, draft = build_pipeline(0, device="cuda",
                                                    reduced=False)
@@ -735,15 +866,107 @@ def check_reduced_zamba2():
         f"logits max|err| {err:.2e} <= 1e-4")
 
 
-def _k1_key(q, kc, vc, lengths):
+def check_reduced_ring_and_cross():
+    """The three families this slice ports, reduced (f32), with the same
+    weights on the CPU plain path and on the kernel path: zamba2 (7
+    layers) at max_len 40000, whose 4096-slot ring a 4200-token prompt
+    wraps (prefill chunks of at most 2048), then 8 greedy tokens; whisper
+    and llama-3.2-vision with xgate at 0.5 and a seeded source (16
+    prompt tokens, 24 greedy tokens).  Greedy ids equal, prefill logits
+    within 1e-4; zeroing the source changes the cross families' logits
+    (the cross path is live)."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.profile_serve import (XGATE, cross_batch,
+                                                  cross_generate,
+                                                  cross_model)
+    from repro_torch.models import build_model
+    cfg = reduced(get_config("zamba2-1.2b"), layers=7)
+    cpu = build_model(cfg, "cpu").init(9)
+    toks = np.random.default_rng(9).integers(3, cfg.vocab_size, (1, 4200))
+    out = []
+    for params in (cpu, copy.deepcopy(cpu).to("cuda")):
+        dev = params.embed.device
+        model = build_model(cfg, dev)
+        cache = model.init_cache(1, 40000)
+        assert tuple(cache["attn"]["pos"].shape) == (1, 4096)
+        for c0 in range(0, 4200, 2048):
+            lg, cache = model.prefill(params, {"tokens": torch.from_numpy(
+                toks[:, c0:c0 + 2048]).to(dev)}, cache)
+        ids = [int(torch.argmax(lg[0, -1]))]
+        for _ in range(7):
+            lg1, cache = model.decode_step(
+                params, torch.tensor([[ids[-1]]], device=dev), cache)
+            ids.append(int(torch.argmax(lg1[0])))
+        out.append((lg.cpu(), ids, cache["attn"]["pos"].cpu()))
+    err = max_err(out[1][0], out[0][0])
+    assert err <= 1e-4 and out[1][1] == out[0][1], (err, out[0][1],
+                                                    out[1][1])
+    assert torch.equal(out[1][2], out[0][2]), "ring positions differ"
+    say(f"[models] reduced f32 zamba2 at max_len 40000 (a 4096-slot ring "
+        f"wrapped by a 4200-token prompt), kernels vs CPU plain path: 8 "
+        f"greedy ids equal, ring positions equal, last prefill chunk's "
+        f"logits max|err| {err:.2e} <= 1e-4")
+    for path in ("whisper", "vlm"):
+        cfg, _, cpu = cross_model(path, torch.device("cpu"))
+        batch = cross_batch(cfg, torch.device("cpu"))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        model = build_model(cfg, "cuda")
+        (lc, ic), (lg, ig) = (
+            cross_generate(build_model(cfg, "cpu"), cpu, batch),
+            cross_generate(model, gpu, gbatch))
+        err = max_err(lg.cpu(), lc)
+        assert err <= 1e-4 and ig == ic, (path, err, ic, ig)
+        src = next(k for k in gbatch if k != "tokens")
+        zero, _ = cross_generate(model, gpu, {
+            **gbatch, src: torch.zeros_like(gbatch[src])}, new_tokens=1)
+        live = max_err(zero, lg)
+        assert live > 1e-2, f"{path}: the cross path is dead ({live})"
+        say(f"[models] reduced f32 {cfg.name} (xgate {XGATE}), kernels vs "
+            f"CPU plain path: {len(ig)} greedy ids equal, prefill logits "
+            f"max|err| {err:.2e} <= 1e-4; a zero source moves the logits "
+            f"by {live:.2e}")
+
+
+class RingFill:
+    """The fill of the ring a window-mode K1 call reads: the query's
+    position + 1, clamped at a full ring, where every slot is visible.
+    ShapeLog reads it after the run, once the device is idle, so that the
+    timed run waits on no device value (the layers make a new ``q_pos``
+    for every call, so it still holds the call's position then)."""
+
+    def __init__(self, q_pos, slots):
+        self.q_pos, self.slots = q_pos, slots
+
+    def read(self):
+        return min(int(self.q_pos[0]) + 1, self.slots)
+
+
+def _k1_key(q, kc, vc, lengths, *, kv_positions=None, q_pos=None,
+            window=0):
+    """A lengths-mode call reads every row in full (the layers pass the
+    valid prefix); a window-mode call is the model's ring, whose state
+    follows from the query's position (a RingFill)."""
     b, h, e = q.shape
-    return (b, h, kc.shape[2], kc.shape[1], e, q.dtype)
+    key = (b, h, kc.shape[2], kc.shape[1], e, q.dtype)
+    if window > 0:
+        key += (window, RingFill(q_pos, kc.shape[1]))
+    return key
 
 
-def _k2_key(q, k, v, *, causal=True, q_offset=0, kv_len=None):
+def _k2_key(q, k, v, *, causal=True, q_offset=0, kv_len=None,
+            kv_positions=None, window=0):
+    """A ring's state follows from q_offset: from q_offset = sk - sq on the
+    ring is full and each query sees the same number of slots, so the
+    offset is clamped there."""
     b, sq, h, e = q.shape
-    return (b, sq, h, k.shape[1], k.shape[2], e, q.dtype, causal, q_offset,
-            kv_len)
+    sk = k.shape[1]
+    if window > 0:
+        return (b, sq, h, sk, k.shape[2], e, q.dtype, causal,
+                min(q_offset, sk - sq), kv_len, window)
+    return (b, sq, h, sk, k.shape[2], e, q.dtype, causal, q_offset, kv_len)
 
 
 def _k3_key(queries, corpus, k):
@@ -761,7 +984,9 @@ def _k5_key(x, dt, B, C, dA):
 # per kernel of repro_torch.kernels.ops.KERNELS: the shape key of one
 # wrapper call, and the case that replays a key on fresh random inputs
 REPLAY = {
-    "decode_attention": (_k1_key, lambda key, g: decode_case(*key, g)),
+    "decode_attention": (_k1_key, lambda key, g: decode_case(
+        *key[:6], g, window=key[6], ring_end=key[7]) if len(key) > 6
+        else decode_case(*key, g)),
     "flash_attention": (_k2_key, lambda key, g: flash_case(*key[:7], g,
                                                            *key[7:])),
     "topk_retrieval": (_k3_key, lambda key, g: topk_case(*key, g)),
@@ -773,12 +998,14 @@ REPLAY = {
 class ShapeLog:
     """Counts the shapes each kernel wrapper is called with while the main
     path runs (it wraps the module functions; the launch counters stay the
-    wrappers' own)."""
+    wrappers' own).  ``seen`` is read after the run: its first read waits
+    for the device and reads each RingFill."""
 
     def __init__(self):
         from repro_torch.kernels import ops
         self.lock = threading.Lock()
-        self.seen = collections.defaultdict(collections.Counter)
+        self.raw = collections.defaultdict(collections.Counter)
+        self._seen = None
         self.mods = {k.name: (k.module, REPLAY[k.name][0])
                      for k in ops.KERNELS}
         self.orig = {}
@@ -789,7 +1016,7 @@ class ShapeLog:
 
             def rec(*a, _fn=fn, _key=key, _name=name, **kw):
                 with self.lock:
-                    self.seen[_name][_key(*a, **kw)] += 1
+                    self.raw[_name][_key(*a, **kw)] += 1
                 return _fn(*a, **kw)
             setattr(mod, name, rec)
         return self
@@ -797,6 +1024,19 @@ class ShapeLog:
     def __exit__(self, *exc):
         for name, (mod, _) in self.mods.items():
             setattr(mod, name, self.orig[name])
+
+    @property
+    def seen(self):
+        if self._seen is None:
+            torch.cuda.synchronize()
+            self._seen = {}
+            for name, raw in self.raw.items():
+                self._seen[name] = collections.Counter()
+                for key, count in raw.items():
+                    self._seen[name][tuple(
+                        x.read() if isinstance(x, RingFill) else x
+                        for x in key)] += count
+        return self._seen
 
 
 def phase_serve(label, argv, then=None):
@@ -920,6 +1160,118 @@ def phase_zamba2():
     return summary, shapes.seen
 
 
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _mode_launches(seen):
+    """Launches of K1/K2 by mode, from the shapes a path gave them: the
+    window mode (a ring) and the cross forms (K2 non-causal, K1 over a
+    cross source)."""
+    k1, k2 = seen.get("decode_attention", {}), seen.get("flash_attention", {})
+    return {"decode_window": sum(c for k, c in k1.items() if len(k) > 6),
+            "flash_window": sum(c for k, c in k2.items() if len(k) > 10),
+            "flash_non_causal": sum(c for k, c in k2.items() if not k[7])}
+
+
+def phase_zamba2_long():
+    """zamba2-1.2b at its published widths in bf16 through
+    ``ServingEngine(max_len=524288)``, the ``long_500k`` length, so the
+    attention cache is a 4096-slot ring: one request, a 4608-token prompt
+    in chunks of 128 (the ring wraps during prefill), then 32 new tokens,
+    every decode step on K1's window mode over 4096 slots.  Counters at 0
+    just before, read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (LONG_MAX_LEN,
+                                                  LONG_NEW_TOKENS,
+                                                  LONG_PROMPT, engine_model,
+                                                  long_workload)
+    _free()
+    cfg, model, params = engine_model(torch.device("cuda"))
+    ring = model.init_cache(1, LONG_MAX_LEN)["attn"]
+    assert tuple(ring["pos"].shape) == (cfg.num_layers // cfg.ssm.attn_every,
+                                        4096), ring["pos"].shape
+    del ring
+    eng = long_workload(cfg, params)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                     # just before the main path
+    t0 = time.perf_counter()
+    with ShapeLog() as shapes:
+        done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()                  # just after
+    modes = _mode_launches(shapes.seen)
+    (req,) = done
+    summary = dict(wall_s=wall, max_len=LONG_MAX_LEN, ring_slots=4096,
+                   prompt_tokens=LONG_PROMPT, tokens=len(req.generated),
+                   tokens_per_s=len(req.generated) / wall, launches=counts,
+                   launches_by_mode=modes,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    say(f"[serve:zamba2 long] {json.dumps(summary)}")
+    assert req.done and req.prefilled == LONG_PROMPT
+    assert 1 <= len(req.generated) <= LONG_NEW_TOKENS
+    assert all(0 <= t < cfg.vocab_size for t in req.generated)
+    assert all(counts[k] > 0 for k in ENGINE_PATH), f"kernel not run: {counts}"
+    assert modes["decode_window"] > 0 and modes["flash_window"] > 0, modes
+    del eng, params, model
+    _free()
+    return summary, shapes.seen
+
+
+def phase_cross(path):
+    """whisper-large-v3 whole (32 encoder and 32 decoder layers, d 1280, 20
+    heads of 64), or llama-3.2-vision-90b at every width and 10 of its 100
+    layers (two groups of one cross block and four self blocks; d 8192, 64
+    heads over 8 kv heads of 128, vocab 128256), bf16, random weights from
+    a seed with xgate at 0.5, through ``build_model(cfg, "cuda")``: a
+    prefill of 16 tokens with a seeded source (1500 audio frames of 1280,
+    or 1601 patch embeddings of 8192), then 24 greedy decode steps.
+    Counters at 0 just before, read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (cross_batch,
+                                                  cross_generate,
+                                                  cross_model)
+    _free()
+    cfg, model, params = cross_model(path, torch.device("cuda"))
+    batch = cross_batch(cfg, torch.device("cuda"))
+    n_params = sum(t.numel() for t in params.parameters())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                     # just before the main path
+    t0 = time.perf_counter()
+    with ShapeLog() as shapes:
+        logits, ids = cross_generate(model, params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()                  # just after
+    modes = _mode_launches(shapes.seen)
+    summary = dict(model=cfg.name, layers=cfg.num_layers,
+                   params_b=n_params / 1e9, wall_s=wall,
+                   prompt_tokens=batch["tokens"].shape[1], tokens=len(ids),
+                   tokens_per_s=len(ids) / wall, launches=counts,
+                   launches_by_mode=modes,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    say(f"[serve:{path}] {json.dumps(summary)}")
+    assert bool(logits.isfinite().all()), "non-finite logits"
+    assert logits.shape == (1, batch["tokens"].shape[1], cfg.vocab_size)
+    assert all(0 <= t < cfg.vocab_size for t in ids)
+    assert counts["decode_attention"] > 0 and counts["flash_attention"] > 0
+    # the cross forms ran: K2 without a causal mask (the cross prefill, and
+    # whisper's encoder) and K1 over the whole source
+    T = (cfg.encdec.source_positions if cfg.family == "audio"
+         else cfg.vlm.vision_tokens)
+    cross_k1 = sum(c for k, c in shapes.seen["decode_attention"].items()
+                   if k[3] == T)
+    assert modes["flash_non_causal"] > 0 and cross_k1 > 0, (modes, cross_k1)
+    say(f"[serve:{path}] K1 over the {T}-row source: {cross_k1} launches; "
+        f"K2 non-causal: {modes['flash_non_causal']}")
+    del params, model, batch, logits
+    _free()
+    return summary, shapes.seen
+
+
 def _replay(name, shapes, memo, g):
     """Per-launch means over ``shapes`` ({key: launches}), each key checked
     and timed once (``memo``) on fresh random inputs."""
@@ -1009,8 +1361,14 @@ def main() -> int:
                                          "--inter-arrival", "0.05"],
                           then=check_spec_round)
     eng, seen_eng = phase_zamba2()
-    timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng})
-    runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng}
+    long, seen_long = phase_zamba2_long()
+    whisper, seen_whisper = phase_cross("whisper")
+    vlm, seen_vlm = phase_cross("vlm")
+    timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng,
+                           "zamba2_long": seen_long, "whisper": seen_whisper,
+                           "vlm": seen_vlm})
+    runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng,
+            "zamba2_long": long, "whisper": whisper, "vlm": vlm}
     table = []
     from repro_torch.kernels import ops
     for k in ops.KERNELS:

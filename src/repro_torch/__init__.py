@@ -5,7 +5,7 @@ main path with torch tensors and hand-written CUDA kernels for Hopper
 (``repro_torch.kernels``).  It imports torch, numpy and the standard
 library only — never ``jax`` and nothing of ``repro``: the control-plane
 modules it shares with the reference (``configs``, ``core``, ``api``,
-``rag.{tokenizer,chunker,datasets,workflow,stages}``,
+``analysis``, ``rag.{tokenizer,chunker,datasets,workflow,stages}``,
 ``serving.executor``) are textual copies with ``repro.`` renamed.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -46,6 +46,14 @@
 //    math (a register double buffer), so on the engine's longest rows the
 //    loads overlap the FMAs; the first step's go out before lengths[b]
 //    arrives.
+//  * Window mode (window > 0; the hybrid family's sliding-window ring
+//    cache): key slot j has position kv_positions[j], and the query of
+//    row b at q_pos[b] sees it iff q_pos[b] - window < kpos <= q_pos[b],
+//    tested in 64 bits so that an empty slot's NEG_POS = -2^30 cannot
+//    overflow.  Slot order is not position order, so every slot below
+//    lengths[b] is visited (a ring passes lengths = S) and masked one by
+//    one; each lane group loads its rows' positions with their K/V rows,
+//    one step ahead.
 // Numerics: scores q.k in f32, times log2(e)/sqrt(e) so that softmax runs
 // on exp2f; the unnormalised probabilities are rounded to V's type before
 // P.V (the reference `mha` rounds the normalised ones: both are within
@@ -102,9 +110,11 @@ template <typename T, int E, int G, int W>
 __global__ void __launch_bounds__(32 * W)
 decode_attn(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const int* __restrict__ lengths,
-            T* __restrict__ out, int h, int n, int S, int chunk, int nsplit,
-            int heads, long long ksb, long long kss, long long ksn,
-            long long vsb, long long vss, long long vsn) {
+            const int* __restrict__ kv_positions,
+            const int* __restrict__ q_pos, T* __restrict__ out, int h, int n,
+            int S, int chunk, int nsplit, int heads, int window,
+            long long ksb, long long kss, long long ksn, long long vsb,
+            long long vss, long long vsn) {
   constexpr int kThreads = 32 * W;
   constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte load
   constexpr int kLpr = E / kVec;            // lanes per key row
@@ -133,6 +143,9 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
   const int stop = min(start + chunk, len);
   const int niter =
       stop > start ? (stop - start + kGroups * kU - 1) / (kGroups * kU) : 0;
+  // window mode: slot j is visible iff w_lo < kpos(j) <= w_hi
+  const long long w_hi = window > 0 ? (long long)q_pos[bi] : 0;
+  const long long w_lo = w_hi - window;
 
   // scores in base-2 units: exp(s / sqrt(E) - m) = exp2(s * scale - m')
   const float scale = 1.4426950408889634f / sqrtf((float)E);
@@ -162,13 +175,16 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
   auto key_of = [&](int it, int u) {
     return start + (it * kU + u) * kGroups + gid;
   };
-  auto load = [&](int it, int bound, uint4 (&kr)[kU], uint4 (&vr)[kU]) {
+  auto load = [&](int it, int bound, uint4 (&kr)[kU], uint4 (&vr)[kU],
+                  int (&pr)[kU]) {
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int key = key_of(it, u);
+      pr[u] = key;  // read only in window mode, which has positions
       if (key < bound) {
         kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + key * kss));
         vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + key * vss));
+        if (kv_positions != nullptr) pr[u] = __ldg(kv_positions + key);
       } else {
         kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
       }
@@ -176,10 +192,12 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   uint4 kc[kU], vc[kU];
-  load(0, stop_s, kc, vc);
+  int pc[kU];  // the rows' positions (window mode)
+  load(0, stop_s, kc, vc, pc);
   for (int it = 0; it < niter; ++it) {
     uint4 kn[kU], vn[kU];
-    if (it + 1 < niter) load(it + 1, stop, kn, vn);  // in flight meanwhile
+    int pn[kU];
+    if (it + 1 < niter) load(it + 1, stop, kn, vn, pn);  // in flight meanwhile
     float s[kU][G];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
@@ -202,7 +220,9 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
           s[u][gi] += __shfl_xor_sync(0xffffffffu, s[u][gi], o);
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      const bool valid = key_of(it, u) < stop;
+      const long long kp = pc[u];
+      const bool valid = key_of(it, u) < stop &&
+                         (window <= 0 || (kp > w_lo && kp <= w_hi));
 #pragma unroll
       for (int gi = 0; gi < G; ++gi)
         s[u][gi] = valid ? s[u][gi] * scale : -CUDART_INF_F;
@@ -242,6 +262,7 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kU; ++u) {
       kc[u] = kn[u];
       vc[u] = vn[u];
+      pc[u] = pn[u];
     }
   }
 
@@ -347,9 +368,10 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int E, int G, int W>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, int b, int h, int n, int S, int chunk, int nsplit,
-           int heads, long long ksb, long long kss, long long ksn,
-           long long vsb, long long vss, long long vsn, cudaStream_t stream) {
+           const int* kv_positions, const int* q_pos, void* out, int b, int h,
+           int n, int S, int chunk, int nsplit, int heads, int window,
+           long long ksb, long long kss, long long ksn, long long vsb,
+           long long vss, long long vsn, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nsplit, h / heads, b);
   cfg.blockDim = dim3(32 * W);
@@ -365,8 +387,8 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_attn<T, E, G, W>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(out), h, n, S, chunk, nsplit, heads, ksb, kss, ksn,
-      vsb, vss, vsn);
+      kv_positions, q_pos, static_cast<T*>(out), h, n, S, chunk, nsplit,
+      heads, window, ksb, kss, ksn, vsb, vss, vsn);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -374,14 +396,15 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 // single head (the plan's long rows of g = 1)
 template <typename T, int E>
 int launch_g(const void* q, const void* k, const void* v,
-             const int* lengths, void* out, int b, int h, int n, int S,
-             int chunk, int nsplit, int heads, int warps, long long ksb,
-             long long kss, long long ksn, long long vsb, long long vss,
-             long long vsn, cudaStream_t stream) {
+             const int* lengths, const int* kv_positions, const int* q_pos,
+             void* out, int b, int h, int n, int S, int chunk, int nsplit,
+             int heads, int warps, int window, long long ksb, long long kss,
+             long long ksn, long long vsb, long long vss, long long vsn,
+             cudaStream_t stream) {
 #define REPRO_DECODE(G, W)                                                   \
-  return launch<T, E, G, W>(q, k, v, lengths, out, b, h, n, S, chunk,       \
-                            nsplit, heads, ksb, kss, ksn, vsb, vss, vsn,    \
-                            stream)
+  return launch<T, E, G, W>(q, k, v, lengths, kv_positions, q_pos, out, b,  \
+                            h, n, S, chunk, nsplit, heads, window, ksb, kss, \
+                            ksn, vsb, vss, vsn, stream)
   if (warps == 8 && heads == 1) REPRO_DECODE(1, 8);
   if (warps != 4) return cudaErrorInvalidValue;
   if (heads <= 1) REPRO_DECODE(1, 4);
@@ -396,25 +419,31 @@ int launch_g(const void* q, const void* k, const void* v,
 
 // q (b,h,e) contiguous; k/v (b,S,n,e) with unit stride on e and element
 // strides (ksb,kss,ksn), every strided row 16-byte aligned; lengths (b,)
-// int32; out (b,h,e) contiguous, q's dtype.  The plan (chunk, nsplit,
-// heads, warps) is decode_attention.py::split_plan's: nsplit <= 8 blocks
-// (one cluster) covering S, `heads` query heads a block (dividing g =
-// h/n, at most 16) and `warps` warps a block (4, or 8 for one head).
+// int32; out (b,h,e) contiguous, q's dtype.  window > 0 is the window
+// mode: q_pos (b,) int32 and kv_positions (S,) int32.  The plan (chunk,
+// nsplit, heads, warps) is decode_attention.py::split_plan's: nsplit <= 8
+// blocks (one cluster) covering S, `heads` query heads a block (dividing
+// g = h/n, at most 16) and `warps` warps a block (4, or 8 for one head).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, int dtype, int b, int h, int n, int S, int e, int chunk,
-    int nsplit, int heads, int warps, long long ksb, long long kss,
-    long long ksn, long long vsb, long long vss, long long vsn,
-    void* stream) {
+    const void* kv_positions, const void* q_pos, void* out, int dtype, int b,
+    int h, int n, int S, int e, int chunk, int nsplit, int heads, int warps,
+    int window, long long ksb, long long kss, long long ksn, long long vsb,
+    long long vss, long long vsn, void* stream) {
   if (n < 1 || h % n != 0 || nsplit < 1 || nsplit > kMaxSplit ||
       chunk < 1 || (long long)chunk * nsplit < S || heads < 1 ||
-      heads > 16 || (h / n) % heads != 0)
+      heads > 16 || (h / n) % heads != 0 ||
+      (window > 0) != (kv_positions != nullptr) ||
+      (window > 0 && q_pos == nullptr))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto li = static_cast<const int*>(lengths);
+  auto kp = static_cast<const int*>(kv_positions);
+  auto qp = static_cast<const int*>(q_pos);
 #define REPRO_DECODE(T, E)                                                  \
-  return launch_g<T, E>(q, k, v, li, out, b, h, n, S, chunk, nsplit, heads, \
-                        warps, ksb, kss, ksn, vsb, vss, vsn, st)
+  return launch_g<T, E>(q, k, v, li, kp, qp, out, b, h, n, S, chunk,        \
+                        nsplit, heads, warps, window, ksb, kss, ksn, vsb,   \
+                        vss, vsn, st)
   if (dtype == repro::kF32) {
     if (e == 16) REPRO_DECODE(float, 16);
     if (e == 64) REPRO_DECODE(float, 64);

@@ -42,6 +42,15 @@
 // (wgmma has no full-f32 mode, and TF32 would break the 2e-5 tolerance
 // the reduced f32 models are held to).
 //
+// Window mode (window > 0; the hybrid family's sliding-window ring
+// cache): key slot j has position kv_positions[j], and the query at qpos =
+// q_offset + i sees it iff qpos - window < kpos and kpos <= qpos (causal),
+// both in 64 bits (an empty slot holds NEG_POS = -2^30).  The slot order
+// is not the position order, so no tile is skipped by the causal edge:
+// every slot tile below kv_len is visited, each key masked by its
+// position (loaded while S = Q Kᵀ is on the tensor cores), and
+// kernels/flash_attention.py::plan splits the whole slot range.
+//
 // Semantics follow the reference `mha`: scores = q.k / sqrt(e) in f32,
 // causal mask q_offset + qpos >= kpos, keys kpos >= kv_len masked, the
 // unnormalised probabilities are rounded to V's dtype before P.V, f32
@@ -73,8 +82,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int E>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int sq, int h,
-          int n, int kv_len, int q_offset, int causal, long long qsb,
+          const T* __restrict__ v, const int* __restrict__ kv_positions,
+          T* __restrict__ out, int sq, int h, int n, int kv_len,
+          int q_offset, int causal, int window, long long qsb,
           long long qss, long long qsh, long long ksb, long long kss,
           long long ksn, long long vsb, long long vss, long long vsn) {
   constexpr int kTPC = kThreads / E;
@@ -99,9 +109,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     qs[i] = (q0 + r < sq) ? repro::to_f(qb[(long long)(q0 + r) * qss + j])
                           : 0.f;
   }
-  // the last key any row of this block may attend to, plus one
+  // the last key any row of this block may attend to, plus one (slots in
+  // position order only)
   int kend = kv_len;
-  if (causal) kend = min(kend, q_offset + min(q0 + kBQ, sq));
+  if (causal && window <= 0) kend = min(kend, q_offset + min(q0 + kBQ, sq));
   const float sqrt_e = sqrtf((float)E);
 
   float m_run[kRowsPerWarp], l_run[kRowsPerWarp];
@@ -141,12 +152,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < kRowsPerWarp; ++r)
         s[r] += qs[(warp + kWarps * r) * E + j] * kj;
     }
-    const int kpos = k0 + lane;
+    const long long kpos =
+        (window > 0 && lane < nk) ? kv_positions[k0 + lane] : k0 + lane;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int qi = warp + kWarps * r;
-      const bool valid =
-          lane < nk && (!causal || q_offset + q0 + qi >= kpos);
+      const long long qpos = (long long)q_offset + q0 + qi;
+      const bool valid = lane < nk && (!causal || qpos >= kpos) &&
+                         (window <= 0 || kpos > qpos - window);
       const float sv = valid ? s[r] / sqrt_e : -CUDART_INF_F;
       const float m_new = fmaxf(m_run[r], repro::warp_max(sv));
       float p = 0.f, alpha = 1.f;
@@ -186,11 +199,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int E>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int h, int n, int kv_len, int q_offset, int causal,
-           long long qsb, long long qss, long long qsh, long long ksb,
-           long long kss, long long ksn, long long vsb, long long vss,
-           long long vsn, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v,
+           const int* kv_positions, void* out, int b, int sq, int h, int n,
+           int kv_len, int q_offset, int causal, int window, long long qsb,
+           long long qss, long long qsh, long long ksb, long long kss,
+           long long ksn, long long vsb, long long vss, long long vsn,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<E>();
   // once per instantiation (a thread-safe static), not on every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -200,8 +214,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   flash_fwd<T, E><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, h, n, kv_len,
-      q_offset, causal, qsb, qss, qsh, ksb, kss, ksn, vsb, vss, vsn);
+      static_cast<const T*>(v), kv_positions, static_cast<T*>(out), sq, h,
+      n, kv_len, q_offset, causal, window, qsb, qss, qsh, ksb, kss, ksn, vsb,
+      vss, vsn);
   return cudaGetLastError();
 }
 
@@ -239,10 +254,11 @@ __global__ void __launch_bounds__(kWG, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
+                const int* __restrict__ kv_positions,
                 __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
                 float* __restrict__ part_ml, int b, int sq, int h, int n,
-                int kv_len, int q_offset, int causal, int per_tile,
-                int chunk, int nsplit) {
+                int kv_len, int q_offset, int causal, int window,
+                int per_tile, int chunk, int nsplit) {
   using TL = Tile<E>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((TL::kAlign - (repro::smem_u32(smem_raw) &
@@ -261,7 +277,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int p0 = mt * per_tile;
   const int rows = per_tile * g;  // rows of the tile that hold a query
   int kend = kv_len;              // one past the last key any row sees
-  if (causal) kend = min(kend, q_offset + min(p0 + per_tile, sq));
+  const bool windowed = window > 0;
+  if (causal && !windowed) kend = min(kend, q_offset + min(p0 + per_tile, sq));
   const int k_lo = split * chunk;
   const int k_hi = min(kend, k_lo + chunk);
   const int ntiles = k_hi > k_lo ? (k_hi - k_lo + kN - 1) / kN : 0;
@@ -295,12 +312,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   // holds rows 16w + lane/4 and + 8) and the keys each may see
   const int r0 = warp * 16 + (lane >> 2);
   int lim[2];
+  long long w_lo[2], w_hi[2];  // window mode: visible iff lo < kpos <= hi
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i, pos = p0 + r / g;
     lim[i] = (r < rows && pos < sq)
-                 ? (causal ? min(k_hi, q_offset + pos + 1) : k_hi)
+                 ? (causal && !windowed ? min(k_hi, q_offset + pos + 1)
+                                        : k_hi)
                  : INT_MIN;
+    w_hi[i] = causal ? (long long)q_offset + pos : LLONG_MAX;
+    w_lo[i] = (long long)q_offset + pos - window;
   }
   // scores in base-2 units: s * log2(e) / sqrt(E), so that exp(s / sqrt(E)
   // - m) is one exp2 of the scaled difference (m, too, is kept scaled)
@@ -314,6 +335,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   if (ntiles > 0) repro::mbar_wait(qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % TL::kStages;
+    // window mode: the positions of this thread's 16 keys of the tile,
+    // loaded while the tile lands and S is multiplied
+    const int key0 = k_lo + j * kN + 2 * (lane & 3);
+    int kpos[16];
+    if (windowed) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int key = key0 + 8 * (x >> 1) + (x & 1);
+        kpos[x] = key < k_hi ? __ldg(kv_positions + key) : 0;
+      }
+    }
     repro::mbar_wait(&bars[s], (j / TL::kStages) & 1);
     const uint32_t k_addr = repro::smem_u32(k_tile(s));
     const uint32_t v_addr = repro::smem_u32(v_tile(s));
@@ -337,9 +369,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     repro::fence_regs(sc);
 
     // online softmax on the fragments: register 4c + 2i + jj holds row
-    // r0 + 8i, key key0 + 8c + 2(lane % 4) + jj; a row's 64 keys are
-    // spread over the 4 lanes of a quad
-    const int key0 = k_lo + j * kN + 2 * (lane & 3);
+    // r0 + 8i, key key0 + 8c + jj; a row's 64 keys are spread over the 4
+    // lanes of a quad
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -349,8 +380,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const int x = 4 * c + 2 * i + jj;
-          const float v =
-              key0 + 8 * c + jj < lim[i] ? sc[x] * scale : -CUDART_INF_F;
+          const long long kp = kpos[2 * c + jj];
+          const bool ok = key0 + 8 * c + jj < lim[i] &&
+                          (!windowed || (kp > w_lo[i] && kp <= w_hi[i]));
+          const float v = ok ? sc[x] * scale : -CUDART_INF_F;
           sc[x] = v;
           mx = fmaxf(mx, v);
         }
@@ -472,12 +505,14 @@ flash_combine(const float* __restrict__ part_o,
 }
 
 template <int E>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 void* part_o, void* part_ml, int b, int sq, int h, int n,
-                 int sk, int kv_len, int q_offset, int causal, long long qsb,
-                 long long qss, long long qsh, long long ksb, long long kss,
-                 long long ksn, long long vsb, long long vss, long long vsn,
-                 int per_tile, int chunk, int nsplit, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const int* kv_positions, void* out, void* part_o,
+                 void* part_ml, int b, int sq, int h, int n, int sk,
+                 int kv_len, int q_offset, int causal, int window,
+                 long long qsb, long long qss, long long qsh, long long ksb,
+                 long long kss, long long ksn, long long vsb, long long vss,
+                 long long vsn, int per_tile, int chunk, int nsplit,
+                 cudaStream_t stream) {
   using TL = Tile<E>;
   const int g = h / n;
   if (per_tile < 1 || per_tile * g > kM || nsplit < 1 || chunk < 1 ||
@@ -503,9 +538,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int mtiles = (sq + per_tile - 1) / per_tile;
   flash_fwd_wgmma<E><<<dim3(mtiles * nsplit, n, b), kWG, TL::kSmem,
                        stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out),
+      qm, km, vm, kv_positions, static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(part_o), static_cast<float*>(part_ml), b, sq, h, n,
-      kv_len, q_offset, causal, per_tile, chunk, nsplit);
+      kv_len, q_offset, causal, window, per_tile, chunk, nsplit);
   cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess || nsplit == 1) return e2;
   const long long rows_total = (long long)b * sq * h;
@@ -525,30 +560,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // flash_attention.py::plan; its strides must be multiples of 8 elements
 // and its pointers 16-byte aligned (TMA), and part_o (nsplit,b,sq,h,e) /
 // part_ml (nsplit,b,sq,h,2) are f32 scratch when nsplit > 1.  f32 runs
-// flash_fwd and ignores the plan and the scratch.
+// flash_fwd and ignores the plan and the scratch.  window > 0 is the
+// window mode, with kv_positions (sk,) int32.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out, void* part_o,
-    void* part_ml, int dtype, int b, int sq, int h, int n, int sk, int e,
-    int kv_len, int q_offset, int causal, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksn,
-    long long vsb, long long vss, long long vsn, int per_tile, int chunk,
-    int nsplit, void* stream) {
-  if (h % n != 0) return cudaErrorInvalidValue;
+    const void* q, const void* k, const void* v, const void* kv_positions,
+    void* out, void* part_o, void* part_ml, int dtype, int b, int sq, int h,
+    int n, int sk, int e, int kv_len, int q_offset, int causal, int window,
+    long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksn, long long vsb, long long vss,
+    long long vsn, int per_tile, int chunk, int nsplit, void* stream) {
+  if (h % n != 0 || window < 0 || (window > 0) != (kv_positions != nullptr))
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  auto kp = static_cast<const int*>(kv_positions);
   if (dtype == repro::kBF16) {
-#define REPRO_WGMMA(E)                                                     \
-  return launch_wgmma<E>(q, k, v, out, part_o, part_ml, b, sq, h, n, sk,   \
-                         kv_len, q_offset, causal, qsb, qss, qsh, ksb, kss, \
-                         ksn, vsb, vss, vsn, per_tile, chunk, nsplit, st)
+#define REPRO_WGMMA(E)                                                      \
+  return launch_wgmma<E>(q, k, v, kp, out, part_o, part_ml, b, sq, h, n,   \
+                         sk, kv_len, q_offset, causal, window, qsb, qss,    \
+                         qsh, ksb, kss, ksn, vsb, vss, vsn, per_tile, chunk, \
+                         nsplit, st)
     if (e == 16) REPRO_WGMMA(16);
     if (e == 64) REPRO_WGMMA(64);
     if (e == 128) REPRO_WGMMA(128);
 #undef REPRO_WGMMA
   } else if (dtype == repro::kF32) {
-#define REPRO_FLASH(E)                                                       \
-  return launch<float, E>(q, k, v, out, b, sq, h, n, kv_len, q_offset,       \
-                          causal, qsb, qss, qsh, ksb, kss, ksn, vsb, vss, vsn, \
-                          st)
+#define REPRO_FLASH(E)                                                      \
+  return launch<float, E>(q, k, v, kp, out, b, sq, h, n, kv_len, q_offset,  \
+                          causal, window, qsb, qss, qsh, ksb, kss, ksn, vsb, \
+                          vss, vsn, st)
     if (e == 16) REPRO_FLASH(16);
     if (e == 64) REPRO_FLASH(64);
     if (e == 128) REPRO_FLASH(128);

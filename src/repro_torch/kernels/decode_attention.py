@@ -4,7 +4,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``.  One
 new query token per sequence attends over the first ``lengths[b]``
 positions of a ``(b, S, n, e)`` cache, read in place through its strides
 (a prefix view ``cache[:, :L]`` costs nothing).  A row of length 0 outputs
-0, as the reference ``mha`` does.
+0, as the reference ``mha`` does.  Window mode (``window`` > 0, the hybrid
+family's ring cache) also masks each slot by its position: visible iff
+``q_pos[b] - window < kv_positions[j] <= q_pos[b]`` (``kernels/ref.py``).
 
 One launch of ``decode_attn`` per call, allocating nothing but the output:
 a block per (b, kv head or query head, key split), every warp on its own
@@ -26,7 +28,7 @@ MAX_SPLIT = 8           # blocks of one cluster (the portable limit)
 SHORT_ROW = 64          # keys up to which a block takes one query head
 SPLIT_STEPS = 2         # load steps a split block must have at least
 TARGET_BLOCKS = 264     # two blocks per SM of an H100
-_SIG = {"repro_decode_attention": [P] * 5 + [I] * 10 + [L] * 6 + [P]}
+_SIG = {"repro_decode_attention": [P] * 7 + [I] * 11 + [L] * 6 + [P]}
 
 launches = _build.LaunchCounter()
 
@@ -68,19 +70,27 @@ def split_plan(b: int, h: int, n: int, S: int, e: int, itemsize: int = 2,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     kv_positions: Optional[torch.Tensor] = None,
+                     q_pos: Optional[torch.Tensor] = None,
+                     window: int = 0) -> torch.Tensor:
     """q (b, h, e); k/v_cache (b, S, n, e); lengths (b,) int32 -> (b, h, e)
-    in q's dtype."""
-    return run(q, k_cache, v_cache, lengths)
+    in q's dtype.  Window mode: ``window`` > 0, ``q_pos`` (b,) int32 and
+    ``kv_positions`` (S,) int32."""
+    return run(q, k_cache, v_cache, lengths, kv_positions=kv_positions,
+               q_pos=q_pos, window=window)
 
 
 def run(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-        lengths: torch.Tensor, nsplit: Optional[int] = None) -> torch.Tensor:
+        lengths: torch.Tensor, nsplit: Optional[int] = None, *,
+        kv_positions: Optional[torch.Tensor] = None,
+        q_pos: Optional[torch.Tensor] = None,
+        window: int = 0) -> torch.Tensor:
     """:func:`decode_attention` with the plan of :func:`split_plan`, or
     with ``nsplit`` splits of ``ceil(S / nsplit)`` keys (a check of every
     cluster size)."""
-    _build.check_cuda("decode_attention", [q, k_cache, v_cache, lengths])
+    _build.check_cuda("decode_attention", [q, k_cache, v_cache, lengths]
+                      + [t for t in (kv_positions, q_pos) if t is not None])
     require(q.dim() == 3 and k_cache.dim() == 4
             and v_cache.shape == k_cache.shape,
             f"decode_attention: bad shapes q {tuple(q.shape)}, "
@@ -107,6 +117,20 @@ def run(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             "decode_attention: lengths must be a contiguous (b,) int32")
     require(nsplit is None or 1 <= nsplit <= min(MAX_SPLIT, S),
             f"decode_attention: {nsplit} splits of {S} keys")
+    require(window >= 0 and (window > 0) == (kv_positions is not None)
+            == (q_pos is not None),
+            "decode_attention: window mode takes a window, kv_positions "
+            "and q_pos together")
+    if window > 0:
+        require(q_pos.shape == (b,) and q_pos.dtype == torch.int32
+                and q_pos.is_contiguous(),
+                "decode_attention: window mode needs a contiguous (b,) "
+                "int32 q_pos")
+        require(kv_positions.shape == (S,)
+                and kv_positions.dtype == torch.int32
+                and kv_positions.is_contiguous(),
+                "decode_attention: kv_positions must be a contiguous (S,) "
+                "int32")
     chunk, nsplit, heads, warps = split_plan(b, h, n, S, e,
                                              q.element_size(), nsplit)
     q, k_cache, v_cache = (t if rows_aligned(t) else
@@ -116,12 +140,17 @@ def run(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lib = _build.library("decode_attention", _SIG)
     rc = lib.repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype],
-        b, h, n, S, e, chunk, nsplit, heads, warps, *k_cache.stride()[:3],
-        *v_cache.stride()[:3], _build.stream_ptr(q))
+        lengths.data_ptr(), _ptr(kv_positions), _ptr(q_pos), out.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, h, n, S, e, chunk, nsplit, heads,
+        warps, window, *k_cache.stride()[:3], *v_cache.stride()[:3],
+        _build.stream_ptr(q))
     _build.check(lib, rc, "decode_attention")
     launches.add()
     return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -133,17 +162,36 @@ def rows_aligned(t: torch.Tensor) -> bool:
             and all(st % step == 0 for st in t.stride()[:-1]))
 
 
+def visible_keys(lengths: torch.Tensor, S: int, *,
+                 kv_positions: Optional[torch.Tensor] = None,
+                 q_pos: Optional[torch.Tensor] = None,
+                 window: int = 0) -> int:
+    """Cache rows the query of each row sees, summed over the batch: the
+    first ``lengths[b]``, and in window mode only those inside the window
+    (counted from the inputs, on the host)."""
+    if window <= 0:
+        return int(lengths.clamp(0, S).sum())
+    from repro_torch.kernels.ref import valid_slots, visible
+    mask = visible(q_pos.cpu()[:, None], kv_positions.cpu(), window)[:, 0]
+    return int((mask & valid_slots(S, lengths.cpu(), "cpu")).sum())
+
+
 def bytes_moved(q: torch.Tensor, k_cache: torch.Tensor,
-                lengths: torch.Tensor) -> int:
-    """Least bytes one call must move: q, the valid K and V rows, the
-    lengths and the output, each once."""
-    n, e = k_cache.shape[2], k_cache.shape[3]
-    valid = int(lengths.clamp(0, k_cache.shape[1]).sum())
-    return (2 * q.numel() * q.element_size() + lengths.numel() * 4
-            + 2 * valid * n * e * k_cache.element_size())
+                lengths: torch.Tensor, **window_mode) -> int:
+    """Least bytes one call must move: q, the visible K and V rows, the
+    lengths (and in window mode the positions) and the output, each
+    once."""
+    S, n, e = k_cache.shape[1:]
+    rows = visible_keys(lengths, S, **window_mode)
+    extra = 0
+    if window_mode.get("window", 0) > 0:
+        extra = 4 * q.shape[0] + 4 * window_mode["kv_positions"].numel()
+    return (2 * q.numel() * q.element_size() + lengths.numel() * 4 + extra
+            + 2 * rows * n * e * k_cache.element_size())
 
 
-def flops(q: torch.Tensor, lengths: torch.Tensor, S: int) -> int:
-    """QK and PV multiply-adds over the valid keys (2 flops each)."""
+def flops(q: torch.Tensor, lengths: torch.Tensor, S: int,
+          **window_mode) -> int:
+    """QK and PV multiply-adds over the visible keys (2 flops each)."""
     h, e = q.shape[1], q.shape[2]
-    return 4 * h * e * int(lengths.clamp(0, S).sum())
+    return 4 * h * e * visible_keys(lengths, S, **window_mode)

@@ -6,6 +6,10 @@ the two arguments prefill into a cache needs: ``q_offset`` (query ``i`` sits
 at position ``q_offset + i``) and ``kv_len`` (keys at ``>= kv_len`` are
 masked).  The causal mask is ``q_offset + qpos >= kpos``.  k/v may be any
 view with a unit-stride head dim, such as the prefix ``cache[:, :L]``.
+Window mode (``window`` > 0 with ``kv_positions``; the hybrid family's
+ring cache) takes each key slot's position from ``kv_positions`` and masks
+``kpos <= qpos - window`` too (``kernels/ref.py``); every slot tile is
+then visited.
 
 The input type picks the kernel (:func:`kernel_for`): bf16 runs
 ``flash_fwd_wgmma`` (tensor cores, TMA-fed K/V tiles, the GQA group packed
@@ -26,7 +30,7 @@ M_TILE = 64             # rows of a wgmma tile: (query position, head)
 KEY_TILE = 64           # keys per K/V tile
 SMS = 132               # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_TILES = 2     # key tiles a split must have to be worth a combine
-_SIG = {"repro_flash_attention": [P] * 6 + [I] * 10 + [L] * 9 + [I] * 3
+_SIG = {"repro_flash_attention": [P] * 7 + [I] * 11 + [L] * 9 + [I] * 3
         + [P]}
 
 launches = _build.LaunchCounter()
@@ -34,10 +38,14 @@ launches = _build.LaunchCounter()
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    kv_len: Optional[int] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    window: int = 0) -> torch.Tensor:
     """q (b, sq, h, e); k/v (b, sk, n, e) with h % n == 0 -> (b, sq, h, e)
-    in q's dtype."""
-    _build.check_cuda("flash_attention", [q, k, v])
+    in q's dtype.  Window mode: ``window`` > 0 and ``kv_positions`` (sk,)
+    int32, each slot's position."""
+    _build.check_cuda("flash_attention", [q, k, v] + (
+        [] if kv_positions is None else [kv_positions]))
     require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
             f"flash_attention: bad shapes q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -58,6 +66,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     require(q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1,
             "flash_attention: inputs must be unit-stride on the head dim")
     require(sk >= 1, "flash_attention: no keys (sk = 0)")
+    require(window >= 0 and (window > 0) == (kv_positions is not None),
+            "flash_attention: window mode takes a window and kv_positions "
+            "together")
+    require(kv_positions is None or (
+        kv_positions.shape == (sk,) and kv_positions.dtype == torch.int32
+        and kv_positions.is_contiguous()),
+            "flash_attention: kv_positions must be a contiguous (sk,) int32")
     out = torch.empty((b, sq, h, e), dtype=q.dtype, device=q.device)
     per_tile = chunk = nsplit = 0
     part_o = part_ml = out
@@ -66,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
         per_tile, _, chunk, nsplit = plan(b, sq, h, n, kv_len, causal,
-                                          q_offset)
+                                          q_offset, ring=window > 0)
         if nsplit > 1:
             part_o = torch.empty((nsplit, b, sq, h, e), dtype=torch.float32,
                                  device=q.device)
@@ -74,11 +89,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention", _SIG)
     rc = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), _build.DTYPE_CODES[q.dtype],
-        b, sq, h, n, sk, e, kv_len, q_offset, int(causal),
-        *tma_strides(q), *tma_strides(k), *tma_strides(v), per_tile, chunk,
-        nsplit, _build.stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kv_positions is None else kv_positions.data_ptr(),
+        out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, sq, h, n, sk, e, kv_len, q_offset,
+        int(causal), window, *tma_strides(q), *tma_strides(k),
+        *tma_strides(v), per_tile, chunk, nsplit, _build.stream_ptr(q))
     _build.check(lib, rc, "flash_attention")
     launches.add()
     return out
@@ -95,20 +111,22 @@ def kernel_for(dtype: torch.dtype) -> str:
 
 
 def plan(b: int, sq: int, h: int, n: int, kv_len: int, causal: bool,
-         q_offset: int):
+         q_offset: int, ring: bool = False):
     """-> (per_tile, mtiles, chunk, nsplit) of ``flash_fwd_wgmma``: query
     positions per 64-row tile (the g = h/n heads of a kv head share it),
     tiles per (b, kv head), keys per split (a multiple of KEY_TILE) and
     the number of splits.  The key range is split only when the
     b·n·mtiles blocks would leave SMs idle, into at most one split per
     MIN_SPLIT_TILES key tiles, so each split's partial is worth its
-    combine."""
+    combine.  A causal call stops at the last key its queries can see,
+    unless the keys carry their own positions (``ring``): then every slot
+    below ``kv_len`` is visited."""
     g = h // n
     require(1 <= g <= M_TILE, f"flash_attention: {g} query heads per kv "
             f"head; the wgmma kernel packs at most {M_TILE}")
     per_tile = M_TILE // g
     mtiles = -(-sq // per_tile)
-    kend = min(kv_len, q_offset + sq) if causal else kv_len
+    kend = min(kv_len, q_offset + sq) if causal and not ring else kv_len
     key_tiles = -(-kend // KEY_TILE)
     base = b * n * mtiles
     nsplit = max(1, min(-(-SMS // base), key_tiles // MIN_SPLIT_TILES))
@@ -139,21 +157,45 @@ def tma_strides(t: torch.Tensor):
     return out
 
 
-def visible_pairs(sq: int, kv_len: int, causal: bool, q_offset: int) -> int:
-    """(query, key) pairs the mask leaves visible, per (batch, head)."""
+def _window_mask(sq: int, kv_len: int, causal: bool, q_offset: int,
+                 kv_positions: torch.Tensor, window: int):
+    from repro_torch.kernels.ref import visible
+    return visible(torch.arange(sq) + q_offset, kv_positions[:kv_len].cpu(),
+                   window, causal)
+
+
+def visible_pairs(sq: int, kv_len: int, causal: bool, q_offset: int,
+                  kv_positions: Optional[torch.Tensor] = None,
+                  window: int = 0) -> int:
+    """(query, key) pairs the mask leaves visible, per (batch, head); in
+    window mode counted from the positions, on the host."""
+    if window > 0:
+        return int(_window_mask(sq, kv_len, causal, q_offset, kv_positions,
+                                window).sum())
     if not causal:
         return sq * kv_len
     return sum(max(0, min(kv_len, q_offset + i + 1)) for i in range(sq))
 
 
-def flops(q: torch.Tensor, kv_len: int, causal: bool, q_offset: int) -> int:
+def flops(q: torch.Tensor, kv_len: int, causal: bool, q_offset: int,
+          **window_mode) -> int:
     """QK and PV multiply-adds over the visible pairs (2 flops each)."""
     b, sq, h, e = q.shape
-    return 4 * b * h * e * visible_pairs(sq, kv_len, causal, q_offset)
+    return 4 * b * h * e * visible_pairs(sq, kv_len, causal, q_offset,
+                                         **window_mode)
 
 
-def bytes_moved(q: torch.Tensor, k: torch.Tensor, kv_len: int) -> int:
-    """q and the output once, and the visible K/V rows once."""
+def bytes_moved(q: torch.Tensor, k: torch.Tensor, kv_len: int, *,
+                causal: bool = True, q_offset: int = 0,
+                kv_positions: Optional[torch.Tensor] = None,
+                window: int = 0) -> int:
+    """q and the output once, and the K/V rows once: the first kv_len, or
+    in window mode the slots some query sees, with their positions."""
     b, _, n, e = k.shape
-    return (2 * q.numel() * q.element_size()
-            + 2 * b * kv_len * n * e * k.element_size())
+    rows, extra = kv_len, 0
+    if window > 0:
+        rows = int(_window_mask(q.shape[1], kv_len, causal, q_offset,
+                                kv_positions, window).any(0).sum())
+        extra = 4 * kv_positions.numel()
+    return (2 * q.numel() * q.element_size() + extra
+            + 2 * b * rows * n * e * k.element_size())

@@ -65,21 +65,24 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    if _on_card(q):
-        return _decode.decode_attention(q, k_cache, v_cache, lengths)
-    return ref.decode_attention_ref(q, k_cache, v_cache, lengths)
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     kv_positions: Optional[torch.Tensor] = None,
+                     q_pos: Optional[torch.Tensor] = None,
+                     window: int = 0) -> torch.Tensor:
+    fn = (_decode.decode_attention if _on_card(q)
+          else ref.decode_attention_ref)
+    return fn(q, k_cache, v_cache, lengths, kv_positions=kv_positions,
+              q_pos=q_pos, window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
-    if _on_card(q):
-        return _flash.flash_attention(q, k, v, causal=causal,
-                                      q_offset=q_offset, kv_len=kv_len)
-    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                                   kv_len=kv_len)
+                    kv_len: Optional[int] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    window: int = 0) -> torch.Tensor:
+    fn = _flash.flash_attention if _on_card(q) else ref.flash_attention_ref
+    return fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+              kv_positions=kv_positions, window=window)
 
 
 def topk_retrieval(queries: torch.Tensor, corpus: torch.Tensor,

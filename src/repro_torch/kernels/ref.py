@@ -1,31 +1,109 @@
 """Plain PyTorch versions of the kernels K1–K5: the CPU path, and what
-``chip_smoke.py`` holds each CUDA kernel against on the card."""
+``chip_smoke.py`` holds each CUDA kernel against on the card.
+
+K1 and K2 take a window mode (``window`` > 0) for the hybrid family's
+sliding-window ring cache: key slot ``j`` has position ``kv_positions[j]``,
+and a query at ``qpos`` sees it iff ``qpos - window < kpos <= qpos`` (``<= qpos`` only where causal),
+tested in int64 as ``kpos > qpos - window``: an empty ring slot holds
+``NEG_POS = -(1 << 30)`` and only the window masks it.  This is the mask
+of ``repro/models/layers.py::mha`` with ``kv_positions`` and ``window``.
+"""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
+NEG_POS = -(1 << 30)        # a ring slot that holds no position yet
+
+
+def ring_positions(W: int, end: int, device=None) -> torch.Tensor:
+    """(W,) int32 slot positions of a W-slot ring after positions
+    0..end-1 were written at slot ``p % W``, as the model writes them: the
+    last W of them, ``NEG_POS`` where a slot is still empty."""
+    pos = torch.full((W,), NEG_POS, dtype=torch.int32)
+    p = torch.arange(max(0, end - W), end, dtype=torch.int32)
+    pos[p % W] = p
+    return pos.to(device)
+
+
+def visible(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
+            causal: bool = True) -> torch.Tensor:
+    """Query positions (..., sq) and key positions (sk,) -> bool (..., sq,
+    sk): ``kpos > qpos - window`` (if ``window`` > 0) and ``kpos <= qpos``
+    (if ``causal``), in int64."""
+    qp, kp = q_pos.long()[..., None], kv_pos.long()
+    mask = torch.ones(qp.shape[:-1] + kp.shape, dtype=torch.bool,
+                      device=kp.device)
+    if window > 0:
+        mask &= kp > qp - window
+    if causal:
+        mask &= kp <= qp
+    return mask
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """``mha`` under an explicit mask (b or 1, sq, sk) of visible (query,
+    key) pairs: f32 scores, fully masked rows output 0, probabilities cast
+    to v's dtype before P.V."""
+    from repro_torch.models.layers import _gqa_out, _gqa_scores
+    scores = _gqa_scores(q, k) / math.sqrt(q.shape[-1])
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs).to(v.dtype)
+    return _gqa_out(probs, v)
+
+
+def valid_slots(n: int, upto, device) -> torch.Tensor:
+    """(b or 1, n) bool: slot j < upto (a length per row, or one int)."""
+    ar = torch.arange(n, device=device)
+    if isinstance(upto, torch.Tensor):
+        return ar[None] < upto.to(device).reshape(-1, 1)
+    return (ar < upto)[None]
+
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
-    """q (b,h,e); caches (b,S,n,e); lengths (b,)."""
-    from repro_torch.models.layers import mha
-    return mha(q[:, None], k_cache, v_cache, causal=False,
-               kv_valid_len=lengths)[:, 0]
+                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                         kv_positions: Optional[torch.Tensor] = None,
+                         q_pos: Optional[torch.Tensor] = None,
+                         window: int = 0) -> torch.Tensor:
+    """q (b,h,e); caches (b,S,n,e); lengths (b,): slots ``>= lengths[b]``
+    are masked.  With ``window`` > 0, also the window mode's mask for
+    queries at ``q_pos`` (b,) over ``kv_positions`` (S,)."""
+    if window <= 0:
+        from repro_torch.models.layers import mha
+        return mha(q[:, None], k_cache, v_cache, causal=False,
+                   kv_valid_len=lengths)[:, 0]
+    S = k_cache.shape[1]
+    mask = (visible(q_pos[:, None], kv_positions, window)
+            & valid_slots(S, lengths, q.device)[:, None])
+    return masked_attention(q[:, None], k_cache, v_cache, mask)[:, 0]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
-    """q (b,sq,h,e), k/v (b,sk,n,e) GQA; query i sits at q_offset + i."""
-    from repro_torch.models.layers import mha
+                        kv_len: Optional[int] = None,
+                        kv_positions: Optional[torch.Tensor] = None,
+                        window: int = 0) -> torch.Tensor:
+    """q (b,sq,h,e), k/v (b,sk,n,e) GQA; query i sits at q_offset + i;
+    slots ``>= kv_len`` are masked.  With ``window`` > 0, the window
+    mode's mask over the slots' ``kv_positions`` (sk,)."""
+    if window <= 0:
+        from repro_torch.models.layers import mha
+        qpos = torch.arange(q.shape[1], device=q.device) + q_offset
+        valid = (None if kv_len is None else
+                 torch.full((q.shape[0],), kv_len, dtype=torch.int32,
+                            device=q.device))
+        return mha(q, k, v, causal=causal, q_positions=qpos,
+                   kv_valid_len=valid)
+    sk = k.shape[1]
     qpos = torch.arange(q.shape[1], device=q.device) + q_offset
-    valid = (None if kv_len is None else
-             torch.full((q.shape[0],), kv_len, dtype=torch.int32,
-                        device=q.device))
-    return mha(q, k, v, causal=causal, q_positions=qpos, kv_valid_len=valid)
+    mask = visible(qpos, kv_positions, window, causal)[None]
+    if kv_len is not None:
+        mask = mask & valid_slots(sk, kv_len, q.device)[:, None]
+    return masked_attention(q, k, v, mask)
 
 
 def topk_retrieval_ref(queries: torch.Tensor, corpus: torch.Tensor,

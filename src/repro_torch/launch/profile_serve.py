@@ -2,6 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path zamba2-engine
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path zamba2-long
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path whisper
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path vlm
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
 where no kernel runs on a device.)
@@ -13,6 +16,15 @@ builds zamba2-1.2b at full width (bf16) and serves ``ENGINE_PROMPTS``
 through ``ServingEngine`` (max_len 1024, prefill chunks of 128, decode
 groups of 8, 24 new tokens each): ``engine_model`` and
 ``engine_workload``, which ``chip_smoke.py`` serves too.
+``--path zamba2-long`` serves one request at the ``long_500k`` length
+(``max_len`` 524288, so the attention cache is a 4096-slot ring): a
+4608-token prompt in chunks of 128, then 32 new tokens
+(``long_workload``).  ``--path whisper`` and ``--path vlm`` build
+whisper-large-v3 (whole) or llama-3.2-vision-90b (every width, depth cut
+to ``VLM_LAYERS``) with ``xgate`` at 0.5, and run a prefill of 16 tokens
+with a seeded source (1500 audio frames, or 1601 patch embeddings), then
+24 greedy decode steps (``cross_model``, ``cross_batch``,
+``cross_generate``).
 Each runs once unprofiled (warm-up: allocator, cuBLAS handles, kernel
 build) and once under ``torch.profiler``, and prints as JSON: the wall
 time of the profiled run, the device's busy share of it (the union of
@@ -33,8 +45,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, torch_dtype
 from repro_torch.api import HeroSession, SessionOptions
+from repro_torch.configs import SHAPES_BY_NAME
 from repro_torch.core.events import EV_STRAGGLER
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import (NO_STRAGGLER_REDISPATCH,
@@ -46,6 +59,18 @@ from repro_torch.rag import default_means, sample_traces
 # slot at once; the 333-token prompt ends in a 77-token chunk)
 ENGINE_PROMPTS = (64, 200, 333, 512, 700, 900)
 ENGINE_NEW_TOKENS = 24
+# zamba2 at long context: the prompt wraps the 4096-slot ring during
+# prefill, so every decode step attends over all 4096 slots
+LONG_MAX_LEN = SHAPES_BY_NAME["long_500k"].seq_len
+LONG_PROMPT, LONG_NEW_TOKENS = 4608, 32
+# the cross-attention families: a 16-token prompt over a seeded source
+CROSS_ARCHS = {"whisper": "whisper-large-v3", "vlm": "llama-3.2-vision-90b"}
+CROSS_PROMPT, CROSS_NEW_TOKENS = 16, 24
+# llama-3.2-vision-90b is about 180 GB in bf16 at its 100 layers; two
+# groups (one cross block and four self blocks each) keep every width in
+# about 22 GB, the untied 128256 x 8192 embedding and head included
+VLM_LAYERS = 10
+XGATE = 0.5     # tanh(0) = 0 would multiply the cross-attention away
 
 # the port's own kernels, by their __global__ names
 PORT_KERNELS = tuple(s for k in ops.KERNELS for s in k.symbols)
@@ -132,6 +157,108 @@ def engine_runner(dev: torch.device) -> Callable[[], dict]:
     return run
 
 
+def long_workload(cfg, params):
+    """-> a fresh ``ServingEngine`` over ``params`` at ``LONG_MAX_LEN``
+    (a ring cache; prefill chunks of 128, decode groups of 8) with one
+    request: ``LONG_PROMPT`` random ids from seed 14, ``LONG_NEW_TOKENS``
+    new tokens."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, params, max_len=LONG_MAX_LEN, prefill_chunk=128,
+                        token_group=8)
+    rng = np.random.default_rng(14)
+    eng.submit(rng.integers(3, cfg.vocab_size, LONG_PROMPT).tolist(),
+               max_new=LONG_NEW_TOKENS)
+    return eng
+
+
+def long_runner(dev: torch.device) -> Callable[[], dict]:
+    """-> a function that serves the long-context request (a fresh engine
+    each time) and returns its wall time and tokens."""
+    cfg, _, params = engine_model(dev)
+
+    def run() -> dict:
+        eng = long_workload(cfg, params)
+        t0 = time.monotonic()
+        done = eng.run_to_completion()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        assert len(done) == 1, "the request did not finish"
+        return {"wall_s": time.monotonic() - t0, "requests": 1,
+                "tokens": len(done[0].generated)}
+    return run
+
+
+def cross_model(path: str, dev: torch.device):
+    """-> (cfg, model, params) of ``--path whisper`` or ``--path vlm``:
+    random weights from seed 15 with every ``xgate`` at ``XGATE``; vlm at
+    ``VLM_LAYERS`` layers.  On the CPU the model is reduced (whisper to 2
+    encoder and 2 decoder layers, vlm to 4 layers in two groups) at f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = get_config(CROSS_ARCHS[path])
+    if dev.type == "cpu":
+        cfg = reduced(cfg, layers=2 if cfg.family == "audio" else 4)
+    elif cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, num_layers=VLM_LAYERS)
+    model = build_model(cfg, dev)
+    params = model.init(15)
+    for blk in params.modules():
+        if getattr(blk, "xgate", None) is not None:
+            blk.xgate.data.fill_(XGATE)
+    return cfg, model, params
+
+
+def cross_batch(cfg, dev: torch.device, seed: int = 16) -> dict:
+    """A ``CROSS_PROMPT``-token prompt and the seeded source: audio frames
+    (1, source_positions, d) or patch embeddings (1, vision_tokens,
+    vision_dim), standard normal, in the model's dtype."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        key, shape = "audio_frames", (cfg.encdec.source_positions,
+                                      cfg.d_model)
+    else:
+        key, shape = "vision_embeds", (cfg.vlm.vision_tokens,
+                                       cfg.vlm.vision_dim)
+    src = torch.from_numpy(rng.standard_normal((1, *shape)).astype(
+        np.float32)).to(dev, torch_dtype(cfg.dtype))
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                           (1, CROSS_PROMPT))).to(dev)
+    return {"tokens": tokens, key: src}
+
+
+@torch.no_grad()
+def cross_generate(model, params, batch: dict,
+                   new_tokens: int = CROSS_NEW_TOKENS):
+    """Prefill (which stores the source's cross k/v) and greedy decode
+    (which reads them) -> (prefill logits, generated ids)."""
+    dev = batch["tokens"].device
+    cache = model.init_cache(1, batch["tokens"].shape[1] + new_tokens)
+    logits, cache = model.prefill(params, batch, cache)
+    ids = [int(torch.argmax(logits[0, -1]))]
+    for _ in range(new_tokens - 1):
+        lg, cache = model.decode_step(
+            params, torch.tensor([[ids[-1]]], device=dev), cache)
+        ids.append(int(torch.argmax(lg[0])))
+    return logits, ids
+
+
+def cross_runner(path: str, dev: torch.device) -> Callable[[], dict]:
+    """-> a function that runs the prefill and greedy decode of ``path``
+    and returns its wall time and tokens."""
+    cfg, model, params = cross_model(path, dev)
+    batch = cross_batch(cfg, dev)
+
+    def run() -> dict:
+        t0 = time.monotonic()
+        _, ids = cross_generate(model, params, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return {"wall_s": time.monotonic() - t0, "tokens": len(ids)}
+    return run
+
+
 def serve_once(stage_fns) -> dict:
     """One isolated W2 query; -> its wall time and per-stage latencies."""
     traces = sample_traces("finqabench", 1, seed=1)
@@ -154,10 +281,16 @@ def serve_once(stage_fns) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None)
-    ap.add_argument("--path", choices=("w2", "zamba2-engine"), default="w2")
+    ap.add_argument("--path", choices=("w2", "zamba2-engine", "zamba2-long",
+                                       *CROSS_ARCHS), default="w2")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    run_once = (w2_runner if args.path == "w2" else engine_runner)(dev)
+    runners = {"w2": w2_runner, "zamba2-engine": engine_runner,
+               "zamba2-long": long_runner}
+    if args.path in CROSS_ARCHS:
+        run_once = cross_runner(args.path, dev)
+    else:
+        run_once = runners[args.path](dev)
     warm = run_once()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -6,10 +6,12 @@ package's names and layouts (``wq (d,h,e)``, ``wk``/``wv (d,n,e)``,
 ``scale``).  Activations are ``(b, s, h, e)``; caches ``(b, S, n, e)``.
 Matmuls run in the parameter dtype, softmax and norms in float32.
 
-``mha`` is the plain reference attention.  ``attention`` sends the dense
-family and the hybrid family's shared block through the kernels
-(``kernels/ops.py``): the flash kernel for no cache or a prefill chunk,
-the decode kernel for a single new token.
+``mha`` is the plain reference attention.  ``attention`` sends every
+attention through the kernels (``kernels/ops.py``): the flash kernel for
+no cache, a prefill chunk or a cross-attention over several queries, the
+decode kernel for a single new token; a sliding window goes to their
+window mode, a cross-attention (``kv_override``) to their non-causal
+and full-length forms.
 """
 from __future__ import annotations
 
@@ -145,60 +147,92 @@ def attention(p: Params, x: torch.Tensor, *, positions: torch.Tensor,
     updated copy; the returned cache is the same mapping.  Attention then
     reads the valid prefix ``[:cache_idx + sq]`` as a view.
 
-    ``window`` > 0 (sliding window) and ``kv_override`` (cross-attention)
-    are off the ported paths (the dense family, and the hybrid family's
-    shared block below the ring cache's 32768 positions): they run the
-    plain ``mha`` on the CPU and raise on CUDA until the ring cache and the
-    vlm/audio families are ported with windowed and cross-attention
-    kernels.
+    ``window`` > 0: a sliding window over the cache (or the sequence)
+    in position order, each slot's position its index; the hybrid
+    family's ring cache attends through :func:`attend_cache` with its own
+    slot positions instead.  ``kv_override`` (k, v) (b, T, n, e):
+    cross-attention over a source of T rows, no RoPE, no mask.
     """
-    dtype = x.dtype
-    if (window > 0 or kv_override is not None) and x.is_cuda:
-        raise NotImplementedError(
-            "sliding-window and cross-attention have no CUDA kernel yet; "
-            "they come with the ring cache and the vlm/audio families")
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    if "bq" in p:
-        q = q + p["bq"]
+    b, sq = x.shape[:2]
     if kv_override is not None:
+        q = project_q(p, x)
         k, v = kv_override
-        out = mha(q.to(dtype), k, v, causal=False)
-    else:
-        k = torch.einsum("bsd,dne->bsne", x, p["wk"])
-        v = torch.einsum("bsd,dne->bsne", x, p["wv"])
-        if "bk" in p:
-            k, v = k + p["bk"], v + p["bv"]
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-        if cache is not None:
-            kc, vc = cache["k"], cache["v"]
-            S, sq = kc.shape[1], q.shape[1]
-            valid = cache_idx + sq
-            if valid > S:
-                raise ValueError(f"cache overflow: {valid} > {S} positions")
-            kc[:, cache_idx:valid] = k.to(kc.dtype)
-            vc[:, cache_idx:valid] = v.to(vc.dtype)
-            if window > 0:
-                out = mha(q, kc, vc, causal=True, q_positions=positions,
-                          kv_positions=torch.arange(S, device=x.device),
-                          kv_valid_len=torch.full((x.shape[0],), valid,
-                                                  device=x.device),
-                          window=window)
-            elif sq == 1:
-                lengths = torch.full((x.shape[0],), valid, dtype=torch.int32,
-                                     device=x.device)
-                out = ops.decode_attention(q[:, 0], kc[:, :valid],
-                                           vc[:, :valid], lengths)[:, None]
-            else:
-                out = ops.flash_attention(q, kc[:, :valid], vc[:, :valid],
-                                          causal=True, q_offset=cache_idx)
-        elif window > 0:
-            out = mha(q, k, v, causal=causal, q_positions=positions,
-                      kv_positions=positions, window=window)
+        if sq == 1:
+            full = torch.full((b,), k.shape[1], dtype=torch.int32,
+                              device=x.device)
+            out = ops.decode_attention(q[:, 0], k, v, full)[:, None]
         else:
-            out = ops.flash_attention(q, k, v, causal=causal)
-    y = torch.einsum("bshe,hed->bsd", out.to(dtype), p["wo"])
-    return y, cache
+            out = ops.flash_attention(q, k, v, causal=False)
+        return project_out(p, out, x.dtype), cache
+    q, k, v = project_qkv(p, x, positions, theta)
+    if cache is None:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  kv_positions=_in_order(sq, window, x))
+        return project_out(p, out, x.dtype), cache
+    kc, vc = cache["k"], cache["v"]
+    valid = cache_idx + sq
+    if valid > kc.shape[1]:
+        raise ValueError(f"cache overflow: {valid} > {kc.shape[1]} "
+                         f"positions")
+    kc[:, cache_idx:valid] = k.to(kc.dtype)
+    vc[:, cache_idx:valid] = v.to(vc.dtype)
+    out = attend_cache(q, kc[:, :valid], vc[:, :valid], cache_idx,
+                       kv_positions=_in_order(valid, window, x),
+                       window=window)
+    return project_out(p, out, x.dtype), cache
+
+
+def _in_order(n: int, window: int,
+              like: torch.Tensor) -> Optional[torch.Tensor]:
+    """The slot positions of n keys held in position order (slot i holds
+    position i), as the kernels' window mode reads them; None without a
+    window."""
+    return (torch.arange(n, dtype=torch.int32, device=like.device)
+            if window > 0 else None)
+
+
+def project_q(p: Params, x: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    return q + p["bq"] if "bq" in p else q
+
+
+def project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                theta: float):
+    """-> q (b,s,h,e), k, v (b,s,n,e), RoPE on q and k."""
+    q = project_q(p, x)
+    k = torch.einsum("bsd,dne->bsne", x, p["wk"])
+    v = torch.einsum("bsd,dne->bsne", x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return (apply_rope(q, positions, theta), apply_rope(k, positions, theta),
+            v)
+
+
+def project_out(p: Params, out: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return torch.einsum("bshe,hed->bsd", out.to(dtype), p["wo"])
+
+
+def attend_cache(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 q_offset: int, *, kv_positions: Optional[torch.Tensor] = None,
+                 window: int = 0) -> torch.Tensor:
+    """Causal attention of queries at ``q_offset + i`` over every slot of
+    the cache view (b, S, n, e), already written: K1 for one query, K2
+    for more.  ``kv_positions`` (S,) int32: each slot's position (a ring);
+    ``window`` > 0: the sliding window."""
+    b, sq = q.shape[:2]
+    S = kc.shape[1]
+    if sq > 1:
+        return ops.flash_attention(q, kc, vc, causal=True,
+                                   q_offset=q_offset,
+                                   kv_positions=kv_positions, window=window)
+    lengths = torch.full((b,), S, dtype=torch.int32, device=q.device)
+    wm = {}
+    if window > 0:
+        wm = dict(kv_positions=kv_positions, window=window,
+                  q_pos=torch.full((b,), q_offset, dtype=torch.int32,
+                                   device=q.device))
+    return ops.decode_attention(q[:, 0], kc, vc, lengths, **wm)[:, None]
 
 
 # ---------------------------------------------------------------------------

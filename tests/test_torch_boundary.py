@@ -21,7 +21,8 @@ SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
 
 COPIES = sorted(
-    [p.relative_to(SRC / "repro") for d in ("configs", "core", "api")
+    [p.relative_to(SRC / "repro")
+     for d in ("configs", "core", "api", "analysis")
      for p in (SRC / "repro" / d).glob("*.py")]
     + [pathlib.Path("rag") / f"{m}.py" for m in
        ("tokenizer", "chunker", "datasets", "workflow", "stages")]

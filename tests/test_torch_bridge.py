@@ -128,3 +128,57 @@ def test_hybrid_cache_round_trip_bit_exact(dtype):
     assert tuple(tc["attn"]["k"].shape) == (1, 2, 24, tcfg.num_kv_heads,
                                             tcfg.resolved_head_dim)
     _assert_same_tree(cache, bridge.cache_from_torch(tc))
+
+
+def _family_cfgs(arch, layers, dtype):
+    from repro.configs import get_config
+    jcfg = reduced(get_config(arch), layers=layers)
+    tcfg = t_reduced(t_get_config(arch), layers=layers)
+    return (dataclasses.replace(jcfg, dtype=dtype),
+            dataclasses.replace(tcfg, dtype=dtype))
+
+
+CROSS_FAMILIES = [("whisper-large-v3", 2), ("llama-3.2-vision-90b", 4)]
+
+
+@pytest.mark.parametrize("arch,layers", CROSS_FAMILIES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_family_params_round_trip_bit_exact(arch, layers, dtype):
+    """vlm ``groups`` (cross blocks stacked on the group axis, ``selfs``
+    stacked again inside each group) and audio ``encoder`` + decoder
+    ``blocks``, each cross block with ``ln_x``, ``xattn`` and the f32
+    scalar ``xgate``, cross both ways unchanged."""
+    jcfg, tcfg = _family_cfgs(arch, layers, dtype)
+    params = jax.tree.map(np.asarray,
+                          jlm.init_params(jax.random.PRNGKey(5), jcfg))
+    rng = np.random.default_rng(6)
+    xg = params["groups"]["cross"] if "groups" in params else params["blocks"]
+    xg["xgate"] = rng.standard_normal(xg["xgate"].shape).astype(np.float32)
+    model = bridge.params_to_torch(params, tcfg, device="cpu")
+    cross = (model.groups[1].cross if "groups" in params
+             else model.blocks[1])
+    assert cross.xgate.dtype == torch.float32 and cross.xgate.dim() == 0
+    assert float(cross.xgate) == float(xg["xgate"][1])
+    _assert_same_tree(params, bridge.params_from_torch(model))
+
+
+@pytest.mark.parametrize("arch,layers,max_len", [
+    ("zamba2-1.2b", 7, 40000),          # the 4096-slot ring with its pos
+    ("whisper-large-v3", 2, 24), ("llama-3.2-vision-90b", 4, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_and_cross_caches_round_trip_bit_exact(arch, layers, max_len,
+                                                    dtype):
+    jcfg, tcfg = _family_cfgs(arch, layers, dtype)
+    cache = jlm.init_cache(jcfg, batch=2, max_len=max_len)
+    rng = np.random.default_rng(7)
+    cache = jax.tree.map(
+        lambda v: np.asarray(jnp.asarray(
+            rng.integers(-5000, 5000, v.shape) if v.dtype == jnp.int32
+            else rng.standard_normal(v.shape), v.dtype)), cache)
+    cache["idx"] = np.asarray(11, np.int32)
+    tc = bridge.cache_to_torch(cache, device="cpu")
+    assert tc["idx"] == 11
+    if "attn" in tc:
+        assert tc["attn"]["pos"].dtype == torch.int32
+        assert tuple(tc["attn"]["pos"].shape) == (1, 4096)
+    _assert_same_tree(cache, bridge.cache_from_torch(tc))

@@ -139,8 +139,8 @@ def test_mlp(gated):
 
 
 def test_sliding_window_plain_path():
-    """window > 0 is off the dense path: it runs the plain mha on the CPU
-    (on a CUDA tensor it raises, having no kernel yet)."""
+    """window > 0 with no cache: each key at its index, through K2's
+    window mode (its plain version on the CPU)."""
     rng = np.random.default_rng(6)
     d, h, n, e, s = 32, 4, 2, 8, 6
     jp, tp = _both(_attn_params(rng, d, h, n, e, False))

@@ -103,8 +103,9 @@ def test_init_params_follows_the_reference_distributions():
 
 def test_hybrid_cache_layout_and_unported_paths():
     """The hybrid cache stacks the Mamba2 states on a layer axis and holds
-    one K/V slice per shared-block application; the ring cache (above
-    32768 positions) and the unported families raise."""
+    one K/V slice per shared-block application; above 32768 positions it
+    is a 4096-slot ring whose ``pos`` starts at ``NEG_POS``; the unported
+    families raise."""
     from repro_torch.models import lm as tlm
     cfg = t_reduced(t_get_config("zamba2-1.2b"), layers=7)
     c = t_build(cfg, "cpu").init_cache(2, 48)
@@ -115,8 +116,13 @@ def test_hybrid_cache_layout_and_unported_paths():
     assert tuple(c["mamba"]["conv_x"].shape) == (7, 2, K - 1, di)
     assert tuple(c["attn"]["k"].shape) == (1, 2, 48, cfg.num_kv_heads,
                                            cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        tlm.init_cache(cfg, 1, 40000, torch.device("cpu"))
-    for arch in ("deepseek-v2-236b", "xlstm-350m", "whisper-large-v3"):
+    ring = tlm.init_cache(cfg, 2, 40000, torch.device("cpu"))["attn"]
+    for leaf in ("k", "v"):
+        assert tuple(ring[leaf].shape) == (1, 2, 4096, cfg.num_kv_heads,
+                                           cfg.resolved_head_dim)
+    assert tuple(ring["pos"].shape) == (1, 4096)
+    assert ring["pos"].dtype == torch.int32
+    assert bool((ring["pos"] == tlm.NEG_POS).all())
+    for arch in ("deepseek-v2-236b", "xlstm-350m"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_build(t_reduced(t_get_config(arch)), "cpu")
