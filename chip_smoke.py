@@ -15,7 +15,9 @@ failure ends the run with a non-zero exit code and no result line:
               int8_mm_wgmma the integer wgmma (IGMMA) and TMA loads, K5's
               bf16 chunk kernel ssd_chunk_mma the tensor-core mma.sync
               (HMMA) and cp.async (LDGSTS), its ssd_decode 16-byte loads
-              and stores (LDG.E.128, STG.E.128).
+              and stores (LDG.E.128, STG.E.128); K1's and K2's MLA-mode
+              kernels cp.async, and their bf16 decode_mla_mma and
+              flash_mla_mma mma.sync (HMMA) fed by ldmatrix (LDSM).
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
@@ -43,7 +45,11 @@ failure ends the run with a non-zero exit code and no result line:
               across and after the wrap) and at the cross shapes (whisper's
               1500 x 1500 encoder, cross prefill of 16 queries over 1500
               frames or 1601 patches, cross decode over them), each timed
-              beside SDPA with an explicit boolean mask.
+              beside SDPA with an explicit boolean mask.  K1 and K2 in
+              their MLA mode at deepseek-v2's shapes (128 heads over the
+              576-wide latent rows, values their first 512 columns; K2's
+              naive form at q·k 192, v 128), in bf16 (timed beside SDPA
+              with ``scale`` and ``enable_gqa``) and f32.
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -51,8 +57,12 @@ failure ends the run with a non-zero exit code and no result line:
               40000, whose 4096-slot ring a 4200-token prompt wraps;
               reduced whisper and llama-3.2-vision with xgate at 0.5 and a
               seeded source (greedy ids equal, and a zero source moves the
-              logits); finite, well-shaped outputs of every RAG stage model
-              at the published widths.
+              logits); a small f32 deepseek-v2 with its published MLA
+              widths (8 heads) and a reduced xlstm-350m (4 layers, one
+              sLSTM), greedy ids equal and deepseek's no-cache (naive)
+              forward against its cached (absorbed) prefill; finite,
+              well-shaped outputs of every RAG stage model at the
+              published widths.
 4. serve    — one isolated W2 query with straggler re-dispatch off (every
               stage runs once, so its launch counts are the query's own),
               then a ``--serve --spec-decode`` run of two staggered
@@ -80,10 +90,17 @@ failure ends the run with a non-zero exit code and no result line:
               source (1500 frames, 1601 patch embeddings), then 24 greedy
               decode steps; K2 must have run non-causal (encoder, cross
               prefill) and K1 over the whole source.
+   deepseek, xlstm — ``ServingEngine`` serves the zamba2 engine's six
+              requests with deepseek-v2-236b (every width, 4 of its 60
+              layers: the dense block and three MoE blocks of 160
+              experts) or xlstm-350m (whole) in its place; every request
+              must finish, and on deepseek K1 and K2 must have launched in
+              their MLA mode.
 5. timing   — each kernel, its plain version and the yardstick replayed at
               every shape the isolated W2 query, the zamba2 engine and
-              long-context runs and the whisper and vlm runs gave it,
-              weighted by launches.
+              long-context runs, the whisper and vlm runs and the
+              deepseek engine gave it, weighted by launches; K1's and K2's
+              MLA mode as rows of their own.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one GPU, no network.
@@ -115,7 +132,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor cores
               "tf32x3": 495e12 / 3}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # K1/K2 in bf16 where every query sees at least MANY_KEYS keys (the window
-# and cross shapes): (atol, rtol).  Over that many keys the probabilities'
+# and cross shapes; for the MLA mode against the near-exact version, see
+# mla_decode_case): (atol, rtol).  Over that many keys the probabilities'
 # rounding averages out, and what is left is the output's rounding, at most
 # one bf16 step (2^-7 of the value), so a key let in or left out at a
 # window's edge shows.  Rows of fewer keys keep TOL: there one rounded
@@ -128,6 +146,10 @@ SSD_TOL = 2e-4
 # the kernels of each main path; every one must launch on its path
 RAG_PATH = ("decode_attention", "flash_attention", "topk_retrieval")
 ENGINE_PATH = ("decode_attention", "flash_attention", "ssd_chunk")
+# K1's and K2's MLA mode, a row of its own in the kernel table
+MLA_ROW = {"decode_attention": "decode_attention (MLA mode)",
+           "flash_attention": "flash_attention (MLA mode)"}
+MLA_SCALE = 192 ** -0.5       # deepseek: 1/sqrt(qk_nope + qk_rope)
 
 
 def say(*a):
@@ -327,6 +349,77 @@ def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
                 library=library, bound=bnd, tol=attention_tol(dtype, fewest))
 
 
+def mla_decode_case(b, h, S, dtype, g, lengths=None, nsplit=None,
+                    slots=None):
+    """K1's MLA mode: h heads over the S-row prefix of a latent cache
+    (b, slots, 576), n = 1, values its first 512 columns.
+
+    The MLA kernels keep the probabilities in f32, and deepseek's rows
+    are peaked, so in bf16 the plain version's own rounding of the
+    normalised probabilities (up to about 7.5e-3 off the exact output at
+    |out| near 1) is what a comparison with it measures.  So the kernel
+    is held to the plain version within TOL and, tighter, to ``exact``
+    (the plain version with f64 values, whose probabilities are not
+    rounded) within ``attention_tol``."""
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ref
+    q = rand((b, h, 576), dtype, g)
+    k = rand((b, slots or S, 576), dtype, g)[:, :S, None]
+    v = k[..., :512]
+    lens = torch.tensor(lengths or [S] * b, dtype=torch.int32, device="cuda")
+
+    def library():      # SDPA over the (b, 1, S, e) views
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            scale=MLA_SCALE, enable_gqa=True)[:, :, 0]
+    bnd = bound_ms(k1.mla_bytes_moved(q, k, v, lens),
+                   (k1.mla_flops(q, v, lens, S), dtype))
+    return dict(kernel=lambda: k1.run_mla(q, k, v, lens, scale=MLA_SCALE,
+                                          nsplit=nsplit),
+                plain=lambda: ref.decode_attention_ref(q, k, v, lens,
+                                                       scale=MLA_SCALE),
+                exact=lambda: ref.decode_attention_ref(
+                    q, k, v.double(), lens, scale=MLA_SCALE),
+                library=library if lengths is None else None, bound=bnd,
+                tol=TOL[dtype],
+                exact_tol=attention_tol(dtype, min(lengths or [S])))
+
+
+def mla_flash_case(b, sq, h, sk, n, e, ev, dtype, g, causal=True,
+                   q_offset=0, kv_len=None):
+    """K2's MLA mode: absorbed (e 576, ev 512: n = 1, values the keys'
+    first columns) or naive (e 192, ev 128, n = h, values apart); held
+    to the plain version and to the near-exact one as mla_decode_case
+    says."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ref
+    q = rand((b, sq, h, e), dtype, g)
+    k = rand((b, sk, n, e), dtype, g)
+    v = k[..., :ev] if e == 576 else rand((b, sk, n, ev), dtype, g)
+    kv_len = sk if kv_len is None else kv_len
+    qpos = torch.arange(sq, device="cuda") + q_offset
+    mask = torch.arange(sk, device="cuda")[None] < kv_len
+    if causal:
+        mask = mask & (qpos[:, None] >= torch.arange(sk, device="cuda"))
+    fewest = int(mask.sum(-1).min())
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=MLA_SCALE, enable_gqa=True).transpose(1, 2)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+              scale=MLA_SCALE)
+    bnd = bound_ms(k2.mla_bytes_moved(q, k, v, kv_len, causal=causal,
+                                      q_offset=q_offset),
+                   (k2.mla_flops(q, v, kv_len, causal, q_offset), dtype))
+    return dict(kernel=lambda: k2.flash_attention(q, k, v, **kw),
+                plain=lambda: ref.flash_attention_ref(q, k, v, **kw),
+                exact=lambda: ref.flash_attention_ref(q, k, v.double(),
+                                                      **kw),
+                library=library, bound=bnd, tol=TOL[dtype],
+                exact_tol=attention_tol(dtype, fewest))
+
+
 def topk_case(nq, N, d, k, g, queries=None, corpus=None):
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_retrieval as k3
@@ -384,9 +477,13 @@ def int8_case(M, K, N, out_dtype, g):
 
 
 def check_case(case, what):
-    """The kernel against its plain version; -> max |err| (over both
-    outputs of a pair)."""
+    """The kernel against its plain version (and, where the case has one,
+    against its near-exact version); -> max |err| from the plain version
+    (over both outputs of a pair)."""
     got, want = case["kernel"](), case["plain"]()
+    if "exact" in case:
+        check_close(got, case["exact"](), case["exact_tol"],
+                    f"{what} against the near-exact version")
     if not case.get("pair"):
         got, want = (got,), (want,)
     return max(check_close(a, b, case["tol"], what)
@@ -445,18 +542,26 @@ def phase_build():
     # 16-byte loads (LDG.E.128) and the cluster barrier of the split merge
     # (UCGABAR_ARV/WAIT) in K1's; the integer wgmma (IGMMA) and TMA loads
     # in K4's int8_mm_wgmma; the tensor-core mma.sync (HMMA) and cp.async
-    # in K5's ssd_chunk_mma, 16-byte loads and stores in its ssd_decode.
+    # in K5's ssd_chunk_mma, 16-byte loads and stores in its ssd_decode;
+    # cp.async in K1's and K2's MLA mode (decode_mla, flash_mla), and in
+    # their bf16 decode_mla_mma and flash_mla_mma also mma.sync (HMMA) fed
+    # by ldmatrix (LDSM).
     # Each named kernel must issue each opcode.
     must = {"flash_fwd_wgmma": ("HGMMA", "UTMALDG"),
             "topk_partial": ("LDGSTS",),
             "decode_attn": ("LDG.E.128", "UCGABAR_ARV", "UCGABAR_WAIT"),
             "int8_mm_wgmma": ("IGMMA", "UTMALDG"),
             "ssd_chunk_mma": ("HMMA", "LDGSTS"),
-            "ssd_decode": ("LDG.E.128", "STG.E.128")}
-    for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG")),
+            "ssd_decode": ("LDG.E.128", "STG.E.128"),
+            "decode_mla": ("LDGSTS",), "flash_mla": ("LDGSTS",),
+            "flash_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
+            "decode_mla_mma": ("HMMA", "LDSM", "LDGSTS")}
+    for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG",
+                                               "LDGSTS", "HMMA", "LDSM")),
                           ("topk_retrieval", ("LDGSTS",)),
                           ("decode_attention", ("LDG.E.128", "UCGABAR_ARV",
-                                                "UCGABAR_WAIT")),
+                                                "UCGABAR_WAIT", "LDGSTS",
+                                                "HMMA", "LDSM")),
                           ("int8_matmul", ("IGMMA", "UTMALDG")),
                           ("ssd_chunk", ("HMMA", "LDGSTS", "LDG.E.128",
                                          "STG.E.128"))):
@@ -707,6 +812,7 @@ def phase_kernels():
                          + " (library: _int_mm, no epilogue)")
             say(line)
     check_window_and_cross(g, errs)
+    check_mla(g, errs)
     return errs, k4_time
 
 
@@ -767,6 +873,52 @@ def check_window_and_cross(g, errs):
             say(line)
 
 
+def check_mla(g, errs):
+    """K1's and K2's MLA mode at deepseek-v2's shapes (b = 1, 128 heads,
+    scale 1/sqrt(192)): K1 over 64 / 333 / 923 latent rows of a 1024-row
+    cache (the engine's decode), with the plan's split, no split and
+    ragged rows; K2 absorbed for the engine's prefill chunks (128 queries
+    at 0, 384 and 772, 77 at 256) and a 5-token first chunk; K2 naive
+    (the forward without a cache) at 150 and 128 positions.  bf16 timed
+    beside SDPA, f32 checked."""
+    cases = []
+    for S in (64, 333, 923):
+        cases.append((f"decode_attention MLA 128 heads S={S}",
+                      lambda dt, S=S: mla_decode_case(1, 128, S, dt, g,
+                                                      slots=1024)))
+    cases += [
+        ("decode_attention MLA S=923 no split", lambda dt: mla_decode_case(
+            1, 128, 923, dt, g, nsplit=1, slots=1024)),
+        ("decode_attention MLA ragged [300,77,0]",
+         lambda dt: mla_decode_case(3, 128, 300, dt, g,
+                                    lengths=[300, 77, 0]))]
+    for sq, off in ((128, 0), (128, 384), (128, 772), (77, 256), (5, 0)):
+        cases.append((f"flash_attention MLA absorbed sq={sq} q_offset={off}",
+                      lambda dt, sq=sq, off=off: mla_flash_case(
+                          1, sq, 128, off + sq, 1, 576, 512, dt, g,
+                          q_offset=off)))
+    for sq, h in ((150, 8), (128, 128)):
+        cases.append((f"flash_attention MLA naive sq={sq} h={h}",
+                      lambda dt, sq=sq, h=h: mla_flash_case(
+                          1, sq, h, sq, h, 192, 128, dt, g)))
+    for what, make in cases:
+        name = MLA_ROW[what.split()[0]]
+        for dt in (torch.bfloat16, torch.float32):
+            c = make(dt)
+            got, want, exact = c["kernel"](), c["plain"](), c["exact"]()
+            err = check_close(got, want, c["tol"], f"{what} {dt}")
+            xerr = check_close(got, exact, c["exact_tol"],
+                               f"{what} {dt} against the near-exact version")
+            errs[name] = max(errs[name], err)
+            line = (f"[kernels] {what} {str(dt)[6:]}: max|err| {err:.2e} "
+                    f"<= {tol_str(c['tol'])}; from the near-exact version: "
+                    f"kernel {xerr:.2e} <= {tol_str(c['exact_tol'])}, plain "
+                    f"{max_err(want, exact):.2e}")
+            if dt == torch.bfloat16:
+                line += " | " + fmt(measure(c))
+            say(line)
+
+
 def phase_models():
     import copy
 
@@ -806,6 +958,7 @@ def phase_models():
         f" embeddings {eerr:.2e} <= 1e-5, search ids equal")
     check_reduced_zamba2()
     check_reduced_ring_and_cross()
+    check_reduced_mla_and_xlstm()
     # published widths: every stage model gives finite, well-shaped output
     tok, emb, rr, rw, chat, draft = build_pipeline(0, device="cuda",
                                                    reduced=False)
@@ -930,6 +1083,57 @@ def check_reduced_ring_and_cross():
             f"by {live:.2e}")
 
 
+def check_reduced_mla_and_xlstm():
+    """A small f32 deepseek-v2 with its published MLA widths (8 heads, a
+    dense and a MoE block; ``published_mla_config``) and xlstm-350m
+    reduced to 4 layers (its sLSTM at layer 3), the same weights on the
+    CPU plain path and on the kernel path: a 150-token (45 for xlstm)
+    prefill, then 8 greedy tokens.  Greedy ids equal, prefill logits
+    within 1e-4; on the card deepseek's no-cache forward (the naive form,
+    K2 MLA at 192/128) against its cached prefill (the absorbed form, K2
+    MLA at 576/512) within 1e-3, and both MLA modes launched."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import published_mla_config
+    from repro_torch.models import build_model
+    for cfg, prompt in ((published_mla_config(), 150),
+                        (reduced(get_config("xlstm-350m"), layers=4), 45)):
+        cpu = build_model(cfg, "cpu").init(17)
+        toks = torch.from_numpy(np.random.default_rng(17).integers(
+            3, cfg.vocab_size, (1, prompt)))
+        out = {}
+        ops.reset_launch_counts()
+        for params in (cpu, copy.deepcopy(cpu).to("cuda")):
+            dev = params.embed.device
+            model = build_model(cfg, dev)
+            cache = model.init_cache(1, prompt + 8)
+            lg, cache = model.prefill(params, {"tokens": toks.to(dev)},
+                                      cache)
+            ids = [int(torch.argmax(lg[0, -1]))]
+            for _ in range(7):
+                lg1, cache = model.decode_step(
+                    params, torch.tensor([[ids[-1]]], device=dev), cache)
+                ids.append(int(torch.argmax(lg1[0])))
+            full = model.apply(params, {"tokens": toks.to(dev)})[0]
+            out[dev.type] = (lg.cpu(), ids, full.cpu())
+        mla = ops.mla_launch_counts()
+        err = max_err(out["cuda"][0], out["cpu"][0])
+        naive = max_err(out["cuda"][2], out["cuda"][0])
+        assert err <= 1e-4 and out["cuda"][1] == out["cpu"][1], (
+            cfg.name, err, out["cpu"][1], out["cuda"][1])
+        assert naive <= 1e-3, f"{cfg.name}: forward vs prefill {naive}"
+        if cfg.family == "moe":
+            assert mla["decode_attention"] > 0 and \
+                mla["flash_attention"] > 0, mla
+        say(f"[models] {cfg.name} f32 ({cfg.num_layers} layers, "
+            f"{cfg.num_heads} heads; MLA kv_lora {cfg.mla.kv_lora_rank}), "
+            f"kernels vs CPU plain path: 8 greedy ids equal, prefill logits "
+            f"max|err| {err:.2e} <= 1e-4; card forward vs prefill "
+            f"{naive:.2e} <= 1e-3; MLA-mode launches {mla}")
+
+
 class RingFill:
     """The fill of the ring a window-mode K1 call reads: the query's
     position + 1, clamped at a full ring, where every slot is visible.
@@ -944,12 +1148,20 @@ class RingFill:
         return min(int(self.q_pos[0]) + 1, self.slots)
 
 
+def _is_mla(key):
+    return key[0] == "mla"
+
+
 def _k1_key(q, kc, vc, lengths, *, kv_positions=None, q_pos=None,
-            window=0):
+            window=0, scale=None):
     """A lengths-mode call reads every row in full (the layers pass the
     valid prefix); a window-mode call is the model's ring, whose state
-    follows from the query's position (a RingFill)."""
+    follows from the query's position (a RingFill); an MLA-mode call is
+    keyed "mla" with its value width."""
     b, h, e = q.shape
+    if scale is not None or vc.shape[-1] != e:
+        return ("mla", b, h, kc.shape[2], kc.shape[1], e, vc.shape[-1],
+                q.dtype)
     key = (b, h, kc.shape[2], kc.shape[1], e, q.dtype)
     if window > 0:
         key += (window, RingFill(q_pos, kc.shape[1]))
@@ -957,12 +1169,15 @@ def _k1_key(q, kc, vc, lengths, *, kv_positions=None, q_pos=None,
 
 
 def _k2_key(q, k, v, *, causal=True, q_offset=0, kv_len=None,
-            kv_positions=None, window=0):
+            kv_positions=None, window=0, scale=None):
     """A ring's state follows from q_offset: from q_offset = sk - sq on the
     ring is full and each query sees the same number of slots, so the
-    offset is clamped there."""
+    offset is clamped there.  An MLA-mode call is keyed "mla"."""
     b, sq, h, e = q.shape
     sk = k.shape[1]
+    if scale is not None or v.shape[-1] != e:
+        return ("mla", b, sq, h, sk, k.shape[2], e, v.shape[-1], q.dtype,
+                causal, q_offset, kv_len)
     if window > 0:
         return (b, sq, h, sk, k.shape[2], e, q.dtype, causal,
                 min(q_offset, sk - sq), kv_len, window)
@@ -983,10 +1198,24 @@ def _k5_key(x, dt, B, C, dA):
 
 # per kernel of repro_torch.kernels.ops.KERNELS: the shape key of one
 # wrapper call, and the case that replays a key on fresh random inputs
+def _mla_k1_case(key, g):
+    _, b, h, n, S, e, ev, dtype = key
+    assert (n, e, ev) == (1, 576, 512), key
+    return mla_decode_case(b, h, S, dtype, g)
+
+
+def _mla_k2_case(key, g):
+    _, b, sq, h, sk, n, e, ev, dtype, causal, q_offset, kv_len = key
+    return mla_flash_case(b, sq, h, sk, n, e, ev, dtype, g, causal=causal,
+                          q_offset=q_offset, kv_len=kv_len)
+
+
 REPLAY = {
     "decode_attention": (_k1_key, lambda key, g: decode_case(
         *key[:6], g, window=key[6], ring_end=key[7]) if len(key) > 6
         else decode_case(*key, g)),
+    MLA_ROW["decode_attention"]: (_k1_key, _mla_k1_case),
+    MLA_ROW["flash_attention"]: (_k2_key, _mla_k2_case),
     "flash_attention": (_k2_key, lambda key, g: flash_case(*key[:7], g,
                                                            *key[7:])),
     "topk_retrieval": (_k3_key, lambda key, g: topk_case(*key, g)),
@@ -1171,6 +1400,8 @@ def _mode_launches(seen):
     window mode (a ring) and the cross forms (K2 non-causal, K1 over a
     cross source)."""
     k1, k2 = seen.get("decode_attention", {}), seen.get("flash_attention", {})
+    k1 = {k: c for k, c in k1.items() if not _is_mla(k)}
+    k2 = {k: c for k, c in k2.items() if not _is_mla(k)}
     return {"decode_window": sum(c for k, c in k1.items() if len(k) > 6),
             "flash_window": sum(c for k, c in k2.items() if len(k) > 10),
             "flash_non_causal": sum(c for k, c in k2.items() if not k[7])}
@@ -1272,6 +1503,72 @@ def phase_cross(path):
     return summary, shapes.seen
 
 
+def phase_engine(path):
+    """``ServingEngine`` with the model of ``path`` (``profile_serve``'s
+    ``engine_model``): deepseek-engine is deepseek-v2-236b at every
+    published width (d 5120, 128 heads, MLA q_lora 1536 / kv_lora 512 /
+    nope 128 / rope 64 / v 128, 160 routed experts of 1536 top-6 and 2
+    shared, the dense block's d_ff 12288, vocab 102400) and 4 of its 60
+    layers; xlstm-engine is xlstm-350m whole (24 layers, d 1024, mLSTM 8
+    heads of 256, sLSTM at 3 / 11 / 19).  bf16, random weights from seed
+    12; the zamba2 engine's six requests (``engine_workload``), counters
+    at 0 just before, read just after.  deepseek must run K1 and K2 in
+    their MLA mode."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (ENGINE_NEW_TOKENS,
+                                                  ENGINE_PROMPTS,
+                                                  engine_model,
+                                                  engine_workload)
+    _free()
+    cfg, _, params = engine_model(torch.device("cuda"), path)
+    n_params = sum(t.numel() for t in params.parameters())
+    eng = engine_workload(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()    # the serving peak, not init's
+    done, steps = [], 0
+    ops.reset_launch_counts()                     # just before the main path
+    t0 = time.perf_counter()
+    with ShapeLog() as shapes:
+        while eng.queue or eng.active:
+            done += eng.step()
+            steps += 1
+            assert steps < 1000, "the engine stopped making progress"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, mla = ops.launch_counts(), ops.mla_launch_counts()  # just after
+    tokens = sum(len(r.generated) for r in done)
+    summary = dict(model=cfg.name, layers=cfg.num_layers,
+                   params_b=n_params / 1e9, wall_s=wall, requests=len(done),
+                   tokens=tokens, tokens_per_s=tokens / wall,
+                   prompt_tokens=sum(ENGINE_PROMPTS), steps=steps,
+                   launches=counts, mla_launches=mla,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    say(f"[serve:{path}] {json.dumps(summary)}")
+    assert sorted(len(r.prompt_ids) for r in done) == list(ENGINE_PROMPTS), \
+        "a request did not finish"
+    assert all(r.done and r.prefilled == len(r.prompt_ids)
+               and 1 <= len(r.generated) <= ENGINE_NEW_TOKENS
+               and all(0 <= t < cfg.vocab_size for t in r.generated)
+               for r in done)
+    if cfg.family == "moe":
+        assert mla["decode_attention"] > 0 and mla["flash_attention"] > 0, \
+            f"MLA mode not run: {mla}"
+    del eng, params
+    _free()
+    return summary, shapes.seen
+
+
+def _split_mla(seen):
+    """A path's shapes with K1's and K2's MLA-mode keys under their own
+    rows (MLA_ROW)."""
+    out = {}
+    for name, keys in seen.items():
+        for key, count in keys.items():
+            row = MLA_ROW[name] if _is_mla(key) else name
+            out.setdefault(row, collections.Counter())[key] += count
+    return out
+
+
 def _replay(name, shapes, memo, g):
     """Per-launch means over ``shapes`` ({key: launches}), each key checked
     and timed once (``memo``) on fresh random inputs."""
@@ -1312,6 +1609,7 @@ def phase_timing(seen_by_path):
     over the paths together."""
     g = torch.Generator(device="cuda").manual_seed(1)
     memo, out = {}, {}
+    seen_by_path = {p: _split_mla(seen) for p, seen in seen_by_path.items()}
     names = sorted({n for seen in seen_by_path.values() for n in seen})
     for name in names:
         both = collections.Counter()
@@ -1364,16 +1662,24 @@ def main() -> int:
     long, seen_long = phase_zamba2_long()
     whisper, seen_whisper = phase_cross("whisper")
     vlm, seen_vlm = phase_cross("vlm")
+    deepseek, seen_deepseek = phase_engine("deepseek-engine")
+    xlstm, _ = phase_engine("xlstm-engine")
     timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng,
                            "zamba2_long": seen_long, "whisper": seen_whisper,
-                           "vlm": seen_vlm})
+                           "vlm": seen_vlm,
+                           "deepseek_engine": seen_deepseek})
     runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng,
-            "zamba2_long": long, "whisper": whisper, "vlm": vlm}
+            "zamba2_long": long, "whisper": whisper, "vlm": vlm,
+            "deepseek_engine": deepseek, "xlstm_engine": xlstm}
     table = []
     from repro_torch.kernels import ops
-    for k in ops.KERNELS:
-        name = k.name
-        by_path = {p: r["launches"][name] for p, r in runs.items()}
+    rows = [(k, k.name, lambda r, n=k.name: r["launches"][n]
+             - r.get("mla_launches", {}).get(n, 0)) for k in ops.KERNELS]
+    rows += [(k, MLA_ROW[k.name],
+              lambda r, n=k.name: r.get("mla_launches", {}).get(n, 0))
+             for k in ops.KERNELS if k.name in MLA_ROW]
+    for k, name, launched in rows:
+        by_path = {p: launched(r) for p, r in runs.items()}
         if name in timing:
             t = timing[name]
             extra = dict(main_path_shapes=t["shapes"],

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+F = ctypes.c_float
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -60,11 +60,18 @@
 // bf16's 2e-2, and in f32 the rounding is exact).  Semantics follow `mha`,
 // not the Pallas kernel: a row with lengths[b] == 0 outputs 0 (the Pallas
 // -1e30 sentinel returns mean(V)).
+//
+// MLA mode (decode_mla_mma, decode_mla, decode_mla_combine): DeepSeek's
+// absorbed decode, 128 query heads over one 576-wide latent key row per
+// position, values its first 512 columns, an explicit scale; mla.cuh's
+// tile loops, shared with K2's MLA mode: bf16 on the tensor cores
+// (decode_mla_mma), f32 on the CUDA cores (decode_mla).
 #include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "mla.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -415,6 +422,34 @@ int launch_g(const void* q, const void* k, const void* v,
 #undef REPRO_DECODE
 }
 
+// MLA mode: mla.cuh's tile loop with one query per batch row
+template <typename T, int EK, int EV, bool VK>
+__global__ void __launch_bounds__(repro_mla::kThreads, 2)
+decode_mla(const repro_mla::Args a) {
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  repro_mla::attend<T, EK, EV, VK>(a, mla_smem);
+}
+
+// MLA mode in bf16: mla.cuh's tensor-core tile loop, one query a row
+__global__ void __launch_bounds__(repro_mla::kThreads, 1)
+decode_mla_mma(const repro_mla::Args a) {
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  repro_mla::attend_mma(a, mla_smem);
+}
+
+template <typename T, int EV>
+__global__ void __launch_bounds__(256)
+decode_mla_combine(const float* part_o, const float* part_ml, T* out,
+                   long long rows, int nsplit) {
+  repro_mla::combine<T, EV>(part_o, part_ml, out, rows, nsplit);
+}
+
+template <typename T, int EK, int EV, bool VK>
+int launch_mla(const repro_mla::Args& a, cudaStream_t stream) {
+  return repro_mla::launch<T, EK, EV, VK>(
+      decode_mla<T, EK, EV, VK>, decode_mla_combine<T, EV>, a, stream);
+}
+
 }  // namespace
 
 // q (b,h,e) contiguous; k/v (b,S,n,e) with unit stride on e and element
@@ -454,5 +489,36 @@ extern "C" int repro_decode_attention(
     if (e == 128) REPRO_DECODE(__nv_bfloat16, 128);
   }
 #undef REPRO_DECODE
+  return cudaErrorInvalidValue;
+}
+
+// MLA mode: q (b,h,ek) with element strides (qsb, qsh); k (b,S,n,ek) with
+// unit stride on the last axis, the values its first ev columns (read
+// from the K tile); lengths (b,) int32; out (b,h,ev) contiguous in q's
+// dtype; scale multiplies q.k (log2(e) is applied here).  The plan
+// (chunk, nsplit) is flash_attention.py::mla_plan's; part_o (nsplit,b,h,
+// ev) and part_ml (nsplit,b,h,2) are f32 scratch when nsplit > 1.  (ek,
+// ev) = (576, 512) only: DeepSeek's absorbed decode over its latent cache;
+// bf16 on decode_mla_mma (mma = 1, 64 rows a block), f32 on decode_mla.
+extern "C" int repro_decode_mla(
+    const void* q, const void* k, const void* lengths, void* out,
+    void* part_o, void* part_ml, int dtype, int b, int h, int n, int S,
+    int ek, int ev, float scale, int chunk, int nsplit, long long qsb,
+    long long qsh, long long ksb, long long kss, long long ksn, int mma,
+    void* stream) {
+  if (lengths == nullptr || ek != 576 || ev != 512)
+    return cudaErrorInvalidValue;
+  repro_mla::Args a{q, k, k, static_cast<const int*>(lengths), out,
+                    static_cast<float*>(part_o),
+                    static_cast<float*>(part_ml), b, 1, h, n, S, S, 0, 0,
+                    chunk, nsplit, scale * 1.4426950408889634f, qsb, 0,
+                    qsh, ksb, kss, ksn, ksb, kss, ksn};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kBF16 && mma && chunk % repro_mla::kMmaKeys == 0)
+    return repro_mla::launch_rows<__nv_bfloat16, 512>(
+        decode_mla_mma, decode_mla_combine<__nv_bfloat16, 512>, a,
+        repro_mla::kMmaRows, repro_mla::kMmaSmem, st);
+  if (dtype == repro::kF32 && !mma)
+    return launch_mla<float, 576, 512, true>(a, st);
   return cudaErrorInvalidValue;
 }

@@ -56,10 +56,19 @@
 // unnormalised probabilities are rounded to V's dtype before P.V, f32
 // accumulation, fully masked rows output 0.  q-head hh reads kv head
 // hh / (h/n), the (b,sq,n,g,e) grouping of layers._gqa_scores.
+//
+// MLA mode (flash_mla_mma, flash_mla, flash_mla_combine): DeepSeek's
+// multi-head latent attention, values narrower than keys and an explicit
+// scale: the absorbed prefill chunk (q·k 576, v 512 = the keys' first
+// columns, n = 1, g = 128, causal at q_offset) and the naive forward (q·k
+// 192, v 128, n = h).  bf16 absorbed chunks run mla.cuh's tensor-core
+// loop (flash_mla_mma), the rest its CUDA-core loop, shared with K1's
+// MLA mode.
 #include <climits>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mla.cuh"
 
 namespace {
 
@@ -551,6 +560,35 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// MLA mode: mla.cuh's tile loop over a chunk of queries
+template <typename T, int EK, int EV, bool VK>
+__global__ void __launch_bounds__(repro_mla::kThreads, 2)
+flash_mla(const repro_mla::Args a) {
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  repro_mla::attend<T, EK, EV, VK>(a, mla_smem);
+}
+
+// MLA mode, bf16 absorbed form: mla.cuh's tensor-core tile loop
+__global__ void __launch_bounds__(repro_mla::kThreads, 1)
+flash_mla_mma(const repro_mla::Args a) {
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  repro_mla::attend_mma(a, mla_smem);
+}
+
+template <typename T, int EV>
+__global__ void __launch_bounds__(256)
+flash_mla_combine(const float* part_o, const float* part_ml, T* out,
+                  long long rows, int nsplit) {
+  repro_mla::combine<T, EV>(part_o, part_ml, out, rows, nsplit);
+}
+
+template <typename T, int EK, int EV, bool VK>
+int launch_mla(const repro_mla::Args& a, cudaStream_t stream) {
+  return repro_mla::launch<T, EK, EV, VK>(
+      flash_mla<T, EK, EV, VK>, flash_mla_combine<T, EV>, a, stream);
+}
+
+
 }  // namespace
 
 // q (b,sq,h,e), k/v (b,sk,n,e): unit stride on e, element strides for the
@@ -592,6 +630,49 @@ extern "C" int repro_flash_attention(
     if (e == 64) REPRO_FLASH(64);
     if (e == 128) REPRO_FLASH(128);
 #undef REPRO_FLASH
+  }
+  return cudaErrorInvalidValue;
+}
+
+// MLA mode: q (b,sq,h,ek), k (b,sk,n,ek), v (b,sk,n,ev), unit stride on
+// the last axis and element strides for the others, every row 16-byte
+// aligned; out (b,sq,h,ev) contiguous in q's dtype.  kv_len <= sk keys
+// are visible, query i sits at q_offset + i, the mask is causal if asked;
+// scale multiplies q.k (log2(e) is applied here).  The plan (chunk,
+// nsplit) is flash_attention.py::mla_plan's; part_o (nsplit,b,sq,h,ev)
+// and part_ml (nsplit,b,sq,h,2) are f32 scratch when nsplit > 1.  (ek, ev)
+// is (576, 512), the absorbed form, whose values are the keys' first 512
+// columns (v is not read: they come from the K tile), in bf16 on
+// flash_mla_mma (mma = 1, 64 rows a block) and in f32 on flash_mla; or
+// (192, 128), the naive form, v apart, on flash_mla (32 rows a block).
+extern "C" int repro_flash_mla(
+    const void* q, const void* k, const void* v, void* out, void* part_o,
+    void* part_ml, int dtype, int b, int sq, int h, int n, int sk, int ek,
+    int ev, int kv_len, int q_offset, int causal, float scale, int chunk,
+    int nsplit, long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksn, long long vsb, long long vss,
+    long long vsn, int mma, void* stream) {
+  if (kv_len < 0 || kv_len > sk || q_offset < 0)
+    return cudaErrorInvalidValue;
+  repro_mla::Args a{q, k, v, nullptr, out, static_cast<float*>(part_o),
+                    static_cast<float*>(part_ml), b, sq, h, n, sk, kv_len,
+                    q_offset, causal, chunk, nsplit,
+                    scale * 1.4426950408889634f, qsb, qss, qsh, ksb, kss,
+                    ksn, vsb, vss, vsn};
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool absorbed = ek == 576 && ev == 512;
+  if (absorbed && dtype == repro::kBF16 && mma &&
+      chunk % repro_mla::kMmaKeys == 0)
+    return repro_mla::launch_rows<__nv_bfloat16, 512>(
+        flash_mla_mma, flash_mla_combine<__nv_bfloat16, 512>, a,
+        repro_mla::kMmaRows, repro_mla::kMmaSmem, st);
+  if (mma) return cudaErrorInvalidValue;
+  if (absorbed && dtype == repro::kF32)
+    return launch_mla<float, 576, 512, true>(a, st);
+  if (ek == 192 && ev == 128) {
+    if (dtype == repro::kBF16)
+      return launch_mla<__nv_bfloat16, 192, 128, false>(a, st);
+    if (dtype == repro::kF32) return launch_mla<float, 192, 128, false>(a, st);
   }
   return cudaErrorInvalidValue;
 }

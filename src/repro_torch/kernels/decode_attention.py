@@ -12,6 +12,16 @@ One launch of ``decode_attn`` per call, allocating nothing but the output:
 a block per (b, kv head or query head, key split), every warp on its own
 key rows; when :func:`split_plan` splits a row, its splits run as one
 thread-block cluster and merge through distributed shared memory.
+
+MLA mode (values narrower than keys, or an explicit ``scale``;
+DeepSeek's absorbed decode, ``repro/models/mla.py``) at (q·k, v) = (576,
+512): the 128 query heads over one latent row per position (n = 1; v
+must be the view of k's first 512 columns, which the kernel reads from
+the K tile), in bf16 on the tensor cores (``decode_mla_mma``, K2's
+absorbed loop with one query a row), in f32 on the CUDA cores
+(``decode_mla``; ``flash_attention.mla_kernel_for``), the key range split
+by ``flash_attention.mla_plan`` and folded by ``decode_mla_combine``.
+Any other pair of widths, or values apart from the keys, raises.
 """
 from __future__ import annotations
 
@@ -20,7 +30,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import I, L, P, require
+from repro_torch.kernels._build import F, I, L, P, require
+from repro_torch.kernels.flash_attention import (aliases_keys,
+                                                 mla_kernel_for, mla_plan,
+                                                 rows_aligned)
 
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 16          # query heads per kv head (the largest template)
@@ -28,9 +41,13 @@ MAX_SPLIT = 8           # blocks of one cluster (the portable limit)
 SHORT_ROW = 64          # keys up to which a block takes one query head
 SPLIT_STEPS = 2         # load steps a split block must have at least
 TARGET_BLOCKS = 264     # two blocks per SM of an H100
-_SIG = {"repro_decode_attention": [P] * 7 + [I] * 11 + [L] * 6 + [P]}
+MLA_DIMS = ((576, 512),)  # (q·k, v) widths of the MLA mode
+_SIG = {"repro_decode_attention": [P] * 7 + [I] * 11 + [L] * 6 + [P],
+        "repro_decode_mla": [P] * 6 + [I] * 7 + [F] + [I] * 2 + [L] * 5
+        + [I] + [P]}
 
 launches = _build.LaunchCounter()
+mla_launches = _build.LaunchCounter()     # the MLA mode's share of them
 
 
 def split_plan(b: int, h: int, n: int, S: int, e: int, itemsize: int = 2,
@@ -73,10 +90,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      kv_positions: Optional[torch.Tensor] = None,
                      q_pos: Optional[torch.Tensor] = None,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q (b, h, e); k/v_cache (b, S, n, e); lengths (b,) int32 -> (b, h, e)
     in q's dtype.  Window mode: ``window`` > 0, ``q_pos`` (b,) int32 and
-    ``kv_positions`` (S,) int32."""
+    ``kv_positions`` (S,) int32.  MLA mode: v_cache (b, S, n, e_v)
+    narrower than k_cache, or a ``scale`` (else 1/sqrt(e)) -> (b, h,
+    e_v)."""
+    if scale is not None or v_cache.shape[-1:] != k_cache.shape[-1:]:
+        require(window == 0 and kv_positions is None and q_pos is None,
+                "decode_attention: the MLA mode has no window mode")
+        return run_mla(q, k_cache, v_cache, lengths, scale=scale)
     return run(q, k_cache, v_cache, lengths, kv_positions=kv_positions,
                q_pos=q_pos, window=window)
 
@@ -149,17 +173,62 @@ def run(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return out
 
 
+def run_mla(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            lengths: torch.Tensor, *, scale: Optional[float] = None,
+            nsplit: Optional[int] = None) -> torch.Tensor:
+    """The MLA mode of :func:`decode_attention`; ``nsplit`` forces the
+    number of key splits (else ``mla_plan``'s)."""
+    _build.check_cuda("decode_attention", [q, k_cache, v_cache, lengths])
+    require(q.dim() == 3 and k_cache.dim() == 4 and v_cache.dim() == 4
+            and v_cache.shape[:3] == k_cache.shape[:3],
+            f"decode_attention: bad MLA shapes q {tuple(q.shape)}, "
+            f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    b, h, e = q.shape
+    kb, S, n, ke = k_cache.shape
+    ev = v_cache.shape[-1]
+    require(kb == b and ke == e and S >= 1 and n >= 1 and h % n == 0,
+            f"decode_attention: q {tuple(q.shape)} vs cache "
+            f"{tuple(k_cache.shape)}")
+    require((e, ev) in MLA_DIMS, f"decode_attention: MLA widths (q·k {e}, "
+            f"v {ev}) not in {MLA_DIMS}")
+    require(aliases_keys(k_cache, v_cache),
+            "decode_attention: the MLA mode reads the values from the keys' "
+            "first columns; v_cache must be that view of k_cache")
+    require(q.dtype in _build.DTYPE_CODES and k_cache.dtype == q.dtype
+            and v_cache.dtype == q.dtype,
+            f"decode_attention: dtypes {q.dtype}/{k_cache.dtype}/"
+            f"{v_cache.dtype} unsupported")
+    require(lengths.shape == (b,) and lengths.dtype == torch.int32
+            and lengths.is_contiguous(),
+            "decode_attention: lengths must be a contiguous (b,) int32")
+    q, k_cache = (t if rows_aligned(t) else
+                  t.clone(memory_format=torch.contiguous_format)
+                  for t in (q, k_cache))
+    kernel = mla_kernel_for(q.dtype, e)
+    chunk, nsplit = mla_plan(b, n, h // n, S, nsplit, kernel)
+    out = torch.empty((b, h, ev), dtype=q.dtype, device=q.device)
+    part_o = part_ml = None
+    if nsplit > 1:
+        part_o = torch.empty((nsplit, b * h, ev), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((nsplit, b * h, 2), dtype=torch.float32,
+                              device=q.device)
+    scale = e ** -0.5 if scale is None else float(scale)
+    lib = _build.library("decode_attention", _SIG)
+    rc = lib.repro_decode_mla(
+        q.data_ptr(), k_cache.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), _ptr(part_o), _ptr(part_ml),
+        _build.DTYPE_CODES[q.dtype], b, h, n, S, e, ev, scale, chunk,
+        nsplit, q.stride(0), q.stride(1), *k_cache.stride()[:3],
+        int(kernel == "flash_mla_mma"), _build.stream_ptr(q))
+    _build.check(lib, rc, "decode_attention (MLA mode)")
+    launches.add()
+    mla_launches.add()
+    return out
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
-
-
-def rows_aligned(t: torch.Tensor) -> bool:
-    """Every head-dim row starts on 16 bytes, as the kernel's vector loads
-    need: the path's tensors and cache prefixes all do; any other view is
-    copied first."""
-    step = 16 // t.element_size()
-    return (t.data_ptr() % 16 == 0
-            and all(st % step == 0 for st in t.stride()[:-1]))
 
 
 def visible_keys(lengths: torch.Tensor, S: int, *,
@@ -195,3 +264,20 @@ def flops(q: torch.Tensor, lengths: torch.Tensor, S: int,
     """QK and PV multiply-adds over the visible keys (2 flops each)."""
     h, e = q.shape[1], q.shape[2]
     return 4 * h * e * visible_keys(lengths, S, **window_mode)
+
+
+def mla_bytes_moved(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, lengths: torch.Tensor) -> int:
+    """q, the output and the lengths once, and each visible latent row
+    once (the values are its first columns)."""
+    b, h, e = q.shape
+    rows = visible_keys(lengths, k_cache.shape[1])
+    return ((q.numel() + b * h * v_cache.shape[-1]) * q.element_size()
+            + 4 * b + rows * k_cache.shape[2] * e * k_cache.element_size())
+
+
+def mla_flops(q: torch.Tensor, v_cache: torch.Tensor,
+              lengths: torch.Tensor, S: int) -> int:
+    """q·k and p·v multiply-adds over the visible keys (2 flops each)."""
+    h, e = q.shape[1], q.shape[2]
+    return 2 * h * (e + v_cache.shape[-1]) * visible_keys(lengths, S)

@@ -40,10 +40,12 @@ class Kernel:
 KERNELS = (
     Kernel("decode_attention", _decode,
            "src/repro/kernels/decode_attention.py:25",
-           ("decode_attn",)),
+           ("decode_attn", "decode_mla", "decode_mla_mma",
+            "decode_mla_combine")),
     Kernel("flash_attention", _flash,
            "src/repro/kernels/flash_attention.py:26",
-           ("flash_fwd_wgmma", "flash_combine", "flash_fwd")),
+           ("flash_fwd_wgmma", "flash_combine", "flash_fwd", "flash_mla",
+            "flash_mla_mma", "flash_mla_combine")),
     Kernel("topk_retrieval", _topk,
            "src/repro/kernels/topk_retrieval.py:22",
            ("topk_partial", "topk_merge")),
@@ -68,21 +70,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      kv_positions: Optional[torch.Tensor] = None,
                      q_pos: Optional[torch.Tensor] = None,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
     fn = (_decode.decode_attention if _on_card(q)
           else ref.decode_attention_ref)
     return fn(q, k_cache, v_cache, lengths, kv_positions=kv_positions,
-              q_pos=q_pos, window=window)
+              q_pos=q_pos, window=window, scale=scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None,
                     kv_positions: Optional[torch.Tensor] = None,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     fn = _flash.flash_attention if _on_card(q) else ref.flash_attention_ref
     return fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-              kv_positions=kv_positions, window=window)
+              kv_positions=kv_positions, window=window, scale=scale)
 
 
 def topk_retrieval(queries: torch.Tensor, corpus: torch.Tensor,
@@ -112,6 +116,14 @@ def launch_counts() -> Dict[str, int]:
     return {k.name: k.module.launches.count for k in KERNELS}
 
 
+def mla_launch_counts() -> Dict[str, int]:
+    """Launches of K1's and K2's MLA mode (a share of their counts)."""
+    return {k.name: k.module.mla_launches.count for k in KERNELS
+            if hasattr(k.module, "mla_launches")}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.module.launches.reset()
+        if hasattr(k.module, "mla_launches"):
+            k.module.mla_launches.reset()

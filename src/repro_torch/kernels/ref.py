@@ -7,6 +7,11 @@ and a query at ``qpos`` sees it iff ``qpos - window < kpos <= qpos`` (``<= qpos`
 tested in int64 as ``kpos > qpos - window``: an empty ring slot holds
 ``NEG_POS = -(1 << 30)`` and only the window masks it.  This is the mask
 of ``repro/models/layers.py::mha`` with ``kv_positions`` and ``window``.
+
+K1 and K2 also take an MLA mode (DeepSeek's multi-head latent attention,
+``repro/models/mla.py``): values narrower than the keys (e_v < e) and an
+explicit ``scale`` (MLA scales by 1/sqrt(qk_head_dim), not by
+1/sqrt(e)); the plain versions take both.
 """
 from __future__ import annotations
 
@@ -44,12 +49,15 @@ def visible(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """``mha`` under an explicit mask (b or 1, sq, sk) of visible (query,
     key) pairs: f32 scores, fully masked rows output 0, probabilities cast
     to v's dtype before P.V."""
     from repro_torch.models.layers import _gqa_out, _gqa_scores
-    scores = _gqa_scores(q, k) / math.sqrt(q.shape[-1])
+    scores = _gqa_scores(q, k)
+    scores = (scores / math.sqrt(q.shape[-1]) if scale is None
+              else scores * scale)
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs).to(v.dtype)
@@ -68,28 +76,32 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
                          kv_positions: Optional[torch.Tensor] = None,
                          q_pos: Optional[torch.Tensor] = None,
-                         window: int = 0) -> torch.Tensor:
-    """q (b,h,e); caches (b,S,n,e); lengths (b,): slots ``>= lengths[b]``
-    are masked.  With ``window`` > 0, also the window mode's mask for
-    queries at ``q_pos`` (b,) over ``kv_positions`` (S,)."""
+                         window: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q (b,h,e); caches k (b,S,n,e), v (b,S,n,e_v); lengths (b,): slots
+    ``>= lengths[b]`` are masked.  With ``window`` > 0, also the window
+    mode's mask for queries at ``q_pos`` (b,) over ``kv_positions``
+    (S,)."""
     if window <= 0:
         from repro_torch.models.layers import mha
         return mha(q[:, None], k_cache, v_cache, causal=False,
-                   kv_valid_len=lengths)[:, 0]
+                   kv_valid_len=lengths, scale=scale)[:, 0]
     S = k_cache.shape[1]
     mask = (visible(q_pos[:, None], kv_positions, window)
             & valid_slots(S, lengths, q.device)[:, None])
-    return masked_attention(q[:, None], k_cache, v_cache, mask)[:, 0]
+    return masked_attention(q[:, None], k_cache, v_cache, mask,
+                            scale)[:, 0]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
                         kv_len: Optional[int] = None,
                         kv_positions: Optional[torch.Tensor] = None,
-                        window: int = 0) -> torch.Tensor:
-    """q (b,sq,h,e), k/v (b,sk,n,e) GQA; query i sits at q_offset + i;
-    slots ``>= kv_len`` are masked.  With ``window`` > 0, the window
-    mode's mask over the slots' ``kv_positions`` (sk,)."""
+                        window: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q (b,sq,h,e), k (b,sk,n,e), v (b,sk,n,e_v) GQA; query i sits at
+    q_offset + i; slots ``>= kv_len`` are masked.  With ``window`` > 0,
+    the window mode's mask over the slots' ``kv_positions`` (sk,)."""
     if window <= 0:
         from repro_torch.models.layers import mha
         qpos = torch.arange(q.shape[1], device=q.device) + q_offset
@@ -97,13 +109,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  torch.full((q.shape[0],), kv_len, dtype=torch.int32,
                             device=q.device))
         return mha(q, k, v, causal=causal, q_positions=qpos,
-                   kv_valid_len=valid)
+                   kv_valid_len=valid, scale=scale)
     sk = k.shape[1]
     qpos = torch.arange(q.shape[1], device=q.device) + q_offset
     mask = visible(qpos, kv_positions, window, causal)[None]
     if kv_len is not None:
         mask = mask & valid_slots(sk, kv_len, q.device)[:, None]
-    return masked_attention(q, k, v, mask)
+    return masked_attention(q, k, v, mask, scale)
 
 
 def topk_retrieval_ref(queries: torch.Tensor, corpus: torch.Tensor,

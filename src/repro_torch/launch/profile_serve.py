@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path zamba2-long
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path whisper
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path vlm
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path deepseek-engine
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path xlstm-engine
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
 where no kernel runs on a device.)
@@ -24,14 +26,18 @@ whisper-large-v3 (whole) or llama-3.2-vision-90b (every width, depth cut
 to ``VLM_LAYERS``) with ``xgate`` at 0.5, and run a prefill of 16 tokens
 with a seeded source (1500 audio frames, or 1601 patch embeddings), then
 24 greedy decode steps (``cross_model``, ``cross_batch``,
-``cross_generate``).
+``cross_generate``).  ``--path deepseek-engine`` and ``--path
+xlstm-engine`` serve the zamba2 engine's requests through
+``ServingEngine`` with deepseek-v2-236b (every width, depth cut to
+``DEEPSEEK_LAYERS``: the first-k dense block and three MoE blocks) or
+xlstm-350m (whole) in its place (``engine_model(dev, path)``).
 Each runs once unprofiled (warm-up: allocator, cuBLAS handles, kernel
 build) and once under ``torch.profiler``, and prints as JSON: the wall
 time of the profiled run, the device's busy share of it (the union of
-kernel intervals over the wall time), the kernel time by category (the
-port's CUDA kernels, GEMMs, everything else) and the 12 heaviest kernels.
-The profiler's own host overhead lengthens the wall time, so the busy
-share is a lower bound.
+kernel intervals over the wall time), its peak device memory, the
+kernel time by category (the port's CUDA kernels, GEMMs, everything
+else) and the 12 heaviest kernels.  The profiler's own host overhead
+lengthens the wall time, so the busy share is a lower bound.
 """
 from __future__ import annotations
 
@@ -72,6 +78,14 @@ CROSS_PROMPT, CROSS_NEW_TOKENS = 16, 24
 VLM_LAYERS = 10
 XGATE = 0.5     # tanh(0) = 0 would multiply the cross-attention away
 
+# the engine paths and their models: deepseek-v2-236b is about 472 GB in
+# bf16 at its 60 layers; the first-k dense block and three MoE blocks
+# keep every width in about 27 GB (13.3 B parameters)
+ENGINE_ARCHS = {"zamba2-engine": "zamba2-1.2b",
+                "deepseek-engine": "deepseek-v2-236b",
+                "xlstm-engine": "xlstm-350m"}
+DEEPSEEK_LAYERS = 4
+
 # the port's own kernels, by their __global__ names
 PORT_KERNELS = tuple(s for k in ops.KERNELS for s in k.symbols)
 GEMM = ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")   # cuBLAS
@@ -111,15 +125,44 @@ def w2_runner(dev: torch.device) -> Callable[[], dict]:
     return run
 
 
-def engine_model(dev: torch.device):
-    """-> (cfg, model, params) of the zamba2 engine workload: zamba2-1.2b
-    at its published widths, random weights from seed 12.  On the CPU the
-    model is reduced to 7 layers at f32."""
+def engine_config(path: str, dev: torch.device):
+    """The model of an engine path: zamba2-1.2b and xlstm-350m whole,
+    deepseek-v2-236b at every width and ``DEEPSEEK_LAYERS`` layers.  On
+    the CPU each is reduced at f32 (zamba2 to 7 layers, deepseek to a
+    dense and two MoE blocks, xlstm to 4 with its first sLSTM)."""
+    import dataclasses
+
     from repro_torch.configs import get_config, reduced
-    from repro_torch.models import build_model
-    cfg = get_config("zamba2-1.2b")
+    cfg = get_config(ENGINE_ARCHS[path])
     if dev.type == "cpu":
-        cfg = reduced(cfg, layers=7)
+        layers = {"hybrid": 7, "moe": 3, "ssm": 4}[cfg.family]
+        return reduced(cfg, layers=layers)
+    if cfg.family == "moe":
+        return dataclasses.replace(cfg, num_layers=DEEPSEEK_LAYERS)
+    return cfg
+
+
+def published_mla_config(arch: str = "deepseek-v2-236b", layers: int = 2,
+                         heads: int = 8):
+    """A small f32 DeepSeek whose MLA widths are the published ones
+    (kv_lora 512, rope 64, nope 128, v 128, q_lora 1536), so that a check
+    of the card against the CPU runs the MLA kernels at the path's
+    widths: d_model 256, ``heads`` heads, the first-k dense block then
+    MoE blocks of 4 experts (top-2, one shared), vocab 256."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        reduced(cfg, layers=layers, d_model=256), mla=cfg.mla,
+        num_heads=heads, num_kv_heads=heads, head_dim=cfg.mla.v_head_dim)
+
+
+def engine_model(dev: torch.device, path: str = "zamba2-engine"):
+    """-> (cfg, model, params) of an engine path (:func:`engine_config`),
+    random weights from seed 12."""
+    from repro_torch.models import build_model
+    cfg = engine_config(path, dev)
     model = build_model(cfg, dev)
     return cfg, model, model.init(12)
 
@@ -139,11 +182,12 @@ def engine_workload(cfg, params):
     return eng
 
 
-def engine_runner(dev: torch.device) -> Callable[[], dict]:
-    """-> a function that serves the zamba2 engine workload (a fresh
-    engine each time, the same prompts) and returns its wall time and
-    tokens."""
-    cfg, _, params = engine_model(dev)
+def engine_runner(dev: torch.device,
+                  path: str = "zamba2-engine") -> Callable[[], dict]:
+    """-> a function that serves the engine workload with ``path``'s model
+    (a fresh engine each time, the same prompts) and returns its wall
+    time and tokens."""
+    cfg, _, params = engine_model(dev, path)
 
     def run() -> dict:
         eng = engine_workload(cfg, params)
@@ -281,17 +325,20 @@ def serve_once(stage_fns) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None)
-    ap.add_argument("--path", choices=("w2", "zamba2-engine", "zamba2-long",
+    ap.add_argument("--path", choices=("w2", *ENGINE_ARCHS, "zamba2-long",
                                        *CROSS_ARCHS), default="w2")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    runners = {"w2": w2_runner, "zamba2-engine": engine_runner,
-               "zamba2-long": long_runner}
     if args.path in CROSS_ARCHS:
         run_once = cross_runner(args.path, dev)
+    elif args.path in ENGINE_ARCHS:
+        run_once = engine_runner(dev, args.path)
     else:
-        run_once = runners[args.path](dev)
+        run_once = {"w2": w2_runner, "zamba2-long": long_runner}[
+            args.path](dev)
     warm = run_once()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = run_once()
@@ -320,6 +367,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "path": args.path,
         "warm_wall_s": warm["wall_s"], "profiled_wall_s": run["wall_s"],
         **{k: v for k, v in run.items() if k != "wall_s"},
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                     if dev.type == "cuda" else None),
         "kernel_launches": len(kernels),
         "device_busy_ms": busy,
         "device_busy_share": busy / (run["wall_s"] * 1e3),

@@ -99,15 +99,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         q_positions: Optional[torch.Tensor] = None,
         kv_positions: Optional[torch.Tensor] = None,
         kv_valid_len: Optional[torch.Tensor] = None,
-        window: int = 0) -> torch.Tensor:
+        window: int = 0, scale: Optional[float] = None) -> torch.Tensor:
     """Plain multi-head GQA attention: the reference the kernels are held
-    to.  q (b,sq,h,e), k/v (b,sk,n,e).  Masks are top-left aligned
-    (positions default to ``arange``); ``kv_valid_len`` (b,) masks a cache
-    tail; fully masked rows output 0; probabilities are cast to v's dtype
-    before P.V."""
+    to.  q/k (b,s,h|n,e), v (b,sk,n,e_v) (e_v may differ from e, as in
+    MLA).  Scores are scaled by ``scale`` (default 1/sqrt(e)).  Masks are
+    top-left aligned (positions default to ``arange``); ``kv_valid_len``
+    (b,) masks a cache tail; fully masked rows output 0; probabilities are
+    cast to v's dtype before P.V."""
     b, sq, h, e = q.shape
     sk = k.shape[1]
-    scores = _gqa_scores(q, k) / math.sqrt(e)
+    scores = _gqa_scores(q, k)
+    scores = scores / math.sqrt(e) if scale is None else scores * scale
     if q_positions is None:
         q_positions = torch.arange(sq, device=q.device)
     if kv_positions is None:

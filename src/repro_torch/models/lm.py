@@ -1,18 +1,25 @@
-"""Language models — port of the dense, hybrid, vlm and audio paths of
-``repro/models/lm.py``.
+"""Language models — port of ``repro/models/lm.py`` for all six
+families.
 
-The parameters are a :class:`DenseLM`, :class:`HybridLM`, :class:`VlmLM`
-or :class:`AudioLM` module whose names mirror the JAX pytree (``embed``,
-``final_norm.scale``, ``lm_head``; dense: per layer
-``blocks.<i>.{ln1,attn,ln2,mlp}.<leaf>``; hybrid: per Mamba2 layer
-``blocks.<i>.{ln,mamba}.<leaf>`` and one weight-shared attention + MLP
-block ``shared``; vlm: ``groups.<g>.cross`` (a block with
+The parameters are a :class:`DenseLM`, :class:`HybridLM`, :class:`VlmLM`,
+:class:`AudioLM`, :class:`MoeLM` or :class:`XlstmLM` module whose names
+mirror the JAX pytree (``embed``, ``final_norm.scale``, ``lm_head``;
+dense: per layer ``blocks.<i>.{ln1,attn,ln2,mlp}.<leaf>``; hybrid: per
+Mamba2 layer ``blocks.<i>.{ln,mamba}.<leaf>`` and one weight-shared
+attention + MLP block ``shared``; vlm: ``groups.<g>.cross`` (a block with
 cross-attention: ``ln_x``, ``xattn`` and the f32 scalar ``xgate``) and
 ``groups.<g>.selfs.<j>``; audio: ``encoder.blocks.<i>``,
-``encoder.final_norm`` and decoder ``blocks.<i>`` with cross-attention),
-where JAX stacks the layers on a leading axis; ``repro_torch.bridge``
-converts between the two.  Layer stacks are Python loops over the block
-modules.
+``encoder.final_norm`` and decoder ``blocks.<i>`` with cross-attention;
+moe (DeepSeek): ``dense_blocks.<i>`` then ``moe_blocks.<i>``, each
+``{ln1, mla, ln2}`` and ``mlp`` or ``moe`` (MLA leaves ``wq_a``,
+``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b``, ``wo``,
+the norms' scales stored flat; MoE leaves the f32 ``router``,
+``w_gate``/``w_up``/``w_down`` stacked on the expert axis and the shared
+experts as ``shared_w_*``), and for v3 ``mtp`` (``proj``, ``ln``, a dense
+``block``; carried, run only by the training loss); ssm (xLSTM):
+``blocks.<i>`` with ``ln`` and ``mlstm`` or ``slstm``), where JAX stacks
+the layers on a leading axis; ``repro_torch.bridge`` converts between the
+two.  Layer stacks are Python loops over the block modules.
 
 Caches: dense ``{"idx", "layers": {"k", "v": (L,b,S,n,e)}}``; hybrid
 ``{"idx", "mamba": {"ssm", "conv_x", "conv_B", "conv_C"}`` stacked on a
@@ -21,12 +28,16 @@ above ``RING_CACHE_ABOVE`` positions a sliding-window ring of ``W = 4096``
 slots with ``"pos": (L // attn_every, W)`` int32 (``NEG_POS`` where
 empty); vlm ``{"idx", "cross_layers", "self_layers", "cross_kv"}``; audio
 ``{"idx", "layers", "cross_kv"}``, ``cross_kv`` {"k", "v": (layers, b, T,
-n, e)} over the T source rows, written at prefill and read at decode.
-Each layer reads and writes its slice of ``layers``/``attn`` in place,
-and ``idx`` is a host int so no step waits on the device to learn it.
+n, e)} over the T source rows, written at prefill and read at decode; moe
+``{"idx", "layers": {"latent": (L, b, S, kv_lora + rope)}}``, each row
+the reference's ``ckv`` then ``krope``; ssm ``{"idx", "mlstm": {"C", "n",
+"m", "conv"}, "slstm": {"c", "n", "h", "m"}}``, each stacked over the
+layers of its kind in layer order.  Each layer reads and writes its slice
+in place, and ``idx`` is a host int so no step waits on the device to
+learn it.
 
-The moe and ssm (xLSTM) families raise NotImplementedError, and the
-training loss is not ported: later slices (ROADMAP).
+The training loss (and so the MTP head's use) is not ported: a later
+slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -40,10 +51,13 @@ from repro_torch import torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import NEG_POS
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
 Cache = Dict[str, Any]
-PORTED_FAMILIES = ("dense", "hybrid", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "hybrid", "vlm", "audio", "moe", "ssm")
 
 
 def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
@@ -143,7 +157,57 @@ class AudioLM(_LM):
         self.blocks = nn.ModuleList(blocks)
 
 
-LM = Union[DenseLM, HybridLM, VlmLM, AudioLM]
+class MoEBlock(nn.Module):
+    """DeepSeek block: pre-norm MLA, then a dense gated MLP (the first
+    ``first_k_dense`` layers, and the MTP head) or the MoE FFN."""
+
+    def __init__(self, ln1, mla, ln2, mlp=None, moe=None):
+        super().__init__()
+        self.ln1, self.mla, self.ln2 = _frozen(ln1), _frozen(mla), \
+            _frozen(ln2)
+        self.mlp = None if mlp is None else _frozen(mlp)
+        self.moe = None if moe is None else _frozen(moe)
+
+
+class MTP(nn.Module):
+    """DeepSeek-v3's multi-token-prediction head: ``proj (2d, d)``,
+    ``ln`` and a dense :class:`MoEBlock`."""
+
+    def __init__(self, proj: torch.Tensor, ln, block: MoEBlock):
+        super().__init__()
+        self.proj = nn.Parameter(proj, requires_grad=False)
+        self.ln = _frozen(ln)
+        self.block = block
+
+
+class MoeLM(_LM):
+    def __init__(self, embed: torch.Tensor, final_norm, dense_blocks,
+                 moe_blocks, lm_head: Optional[torch.Tensor] = None,
+                 mtp: Optional[MTP] = None):
+        super().__init__(embed, final_norm, lm_head)
+        self.dense_blocks = nn.ModuleList(dense_blocks)
+        self.moe_blocks = nn.ModuleList(moe_blocks)
+        self.mtp = mtp
+
+
+class XlstmBlock(nn.Module):
+    """One pre-norm xLSTM layer: an mLSTM or an sLSTM."""
+
+    def __init__(self, ln, mlstm=None, slstm=None):
+        super().__init__()
+        self.ln = _frozen(ln)
+        self.mlstm = None if mlstm is None else _frozen(mlstm)
+        self.slstm = None if slstm is None else _frozen(slstm)
+
+
+class XlstmLM(_LM):
+    def __init__(self, embed: torch.Tensor, final_norm, blocks,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__(embed, final_norm, lm_head)
+        self.blocks = nn.ModuleList(blocks)
+
+
+LM = Union[DenseLM, HybridLM, VlmLM, AudioLM, MoeLM, XlstmLM]
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -194,6 +258,20 @@ def init_dense_block(cfg: ModelConfig, generator: torch.Generator,
                       _norm(cfg, device), mlp, **extra)
 
 
+def init_moe_block(cfg: ModelConfig, generator: torch.Generator,
+                   device: torch.device, dense_ffn: bool) -> MoEBlock:
+    d, dt = cfg.d_model, torch_dtype(cfg.dtype)
+    mla = MLA.init_mla(d, cfg.num_heads, cfg.mla, dt, generator, device)
+    if not dense_ffn:
+        return MoEBlock(_norm(cfg, device), mla, _norm(cfg, device),
+                        moe=MOE.init_moe(d, cfg.moe, dt, generator, device))
+    f = cfg.moe.dense_d_ff
+    mlp = {k: L.dense_init(shape, dt, generator, device)
+           for k, shape in (("w_up", (d, f)), ("w_down", (f, d)),
+                            ("w_gate", (d, f)))}
+    return MoEBlock(_norm(cfg, device), mla, _norm(cfg, device), mlp=mlp)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device) -> LM:
     """Random weights with the JAX package's distributions, drawn on
@@ -228,6 +306,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                           _norm(cfg, device))
         return AudioLM(embed, final_norm, encoder,
                        dense_blocks(cfg.num_layers, cross=True), lm_head)
+    if cfg.family == "moe":
+        nk = cfg.moe.first_k_dense
+        mtp = None
+        if cfg.mtp_depth:
+            mtp = MTP(L.dense_init((2 * d, d), dt, generator, device),
+                      _norm(cfg, device),
+                      init_moe_block(cfg, generator, device, True))
+        return MoeLM(
+            embed, final_norm,
+            [init_moe_block(cfg, generator, device, True)
+             for _ in range(nk)],
+            [init_moe_block(cfg, generator, device, False)
+             for _ in range(cfg.num_layers - nk)], lm_head, mtp)
+    if cfg.family == "ssm":
+        blocks = [XlstmBlock(_norm(cfg, device), slstm=XL.init_slstm(
+                      d, dt, generator, device))
+                  if i in cfg.ssm.slstm_layers else
+                  XlstmBlock(_norm(cfg, device), mlstm=XL.init_mlstm(
+                      d, cfg.ssm, dt, generator, device))
+                  for i in range(cfg.num_layers)]
+        return XlstmLM(embed, final_norm, blocks, lm_head)
     return DenseLM(embed, final_norm, dense_blocks(cfg.num_layers), lm_head)
 
 
@@ -271,6 +370,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if fam == "audio":
         return {"idx": 0, "layers": kv(cfg.num_layers, max_len),
                 "cross_kv": kv(cfg.num_layers, cfg.encdec.source_positions)}
+    if fam == "moe":
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        return {"idx": 0, "layers": {"latent": torch.zeros(
+            (cfg.num_layers, batch, max_len, width), dtype=dt,
+            device=device)}}
+    if fam == "ssm":
+        ms = [XL.init_mlstm_state(batch, cfg.d_model, cfg.ssm, dt, device)
+              for i in range(cfg.num_layers)
+              if i not in cfg.ssm.slstm_layers]
+        ss = [XL.init_slstm_state(batch, cfg.d_model, device)
+              for i in range(cfg.num_layers) if i in cfg.ssm.slstm_layers]
+        cache = {"idx": 0, "mlstm": _stack_states(ms)}
+        if ss:
+            cache["slstm"] = _stack_states(ss)
+        return cache
     W = window_for(cfg, max_len)
     n_attn = cfg.num_layers // cfg.ssm.attn_every
     attn = kv(n_attn, W or max_len)
@@ -283,6 +397,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "mamba": {k: torch.stack([st[k] for st in states])
                       for k in states[0]},
             "attn": attn}
+
+
+def _stack_states(states: List[Dict[str, torch.Tensor]]):
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
 
 
 def _layer(tree: Optional[Mapping[str, torch.Tensor]],
@@ -471,6 +589,68 @@ def _run_audio(params: AudioLM, cfg: ModelConfig, batch, x, positions,
     return x
 
 
+def moe_block(p: MoEBlock, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor,
+              cache: Optional[Mapping[str, torch.Tensor]] = None,
+              cache_idx: Optional[int] = None,
+              capacity_factor: float = 1.25
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux): MLA (its latent cache written in place), then the
+    dense MLP (aux 0) or the MoE FFN and its load-balance loss."""
+    h, _ = MLA.mla_attention(p.mla, L.rmsnorm(p.ln1, x, cfg.norm_eps),
+                             cfg.mla, positions=positions,
+                             theta=cfg.rope_theta, cache=cache,
+                             cache_idx=cache_idx)
+    x = x + h
+    h2 = L.rmsnorm(p.ln2, x, cfg.norm_eps)
+    if p.moe is not None:
+        y, aux = MOE.moe_ffn(p.moe, h2, cfg.moe,
+                             capacity_factor=capacity_factor)
+    else:
+        y = L.mlp(p.mlp, h2)
+        aux = torch.zeros((), device=x.device)
+    return x + y, aux
+
+
+def _run_moe(params: MoeLM, cfg: ModelConfig, x, positions, cache,
+             cache_idx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense blocks, then the MoE blocks, layer ``i`` on slice ``i``
+    of the latent cache; the capacity factor is 2.0 below 4096 tokens a
+    call, else 1.25 (the reference's)."""
+    cap = 2.0 if x.shape[0] * x.shape[1] < 4096 else 1.25
+    lat = None if cache is None else cache["layers"]
+    aux = torch.zeros((), device=x.device)
+    for i, blk in enumerate([*params.dense_blocks, *params.moe_blocks]):
+        x, a = moe_block(blk, cfg, x, positions=positions,
+                         cache=_layer(lat, i), cache_idx=cache_idx,
+                         capacity_factor=cap)
+        aux = aux + a
+    return x, aux
+
+
+def _run_xlstm(params: XlstmLM, cfg: ModelConfig, x: torch.Tensor,
+               cache: Optional[Cache]) -> torch.Tensor:
+    """Each layer x + block(rmsnorm(x)); with a cache, its state slice
+    (the i-th of its kind) is read and overwritten in place."""
+    counts = {"mlstm": 0, "slstm": 0}
+    for blk in params.blocks:
+        kind = "slstm" if blk.slstm is not None else "mlstm"
+        st = None if cache is None else _layer(cache[kind], counts[kind])
+        counts[kind] += 1
+        h = L.rmsnorm(blk.ln, x, cfg.norm_eps)
+        if kind == "slstm":
+            y, new = XL.slstm_forward(blk.slstm, h, init_state=st,
+                                      return_state=st is not None)
+        else:
+            y, new = XL.mlstm_forward(blk.mlstm, h, cfg.ssm, init_state=st,
+                                      return_state=st is not None)
+        if st is not None:
+            for k, v in new.items():
+                st[k].copy_(v)
+        x = x + y
+    return x
+
+
 def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
     if params.lm_head is not None:
         return x @ params.lm_head
@@ -482,7 +662,8 @@ def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
 def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
           mode: str = "train", cache: Optional[Cache] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
-    """Returns (logits, aux_loss, new_cache).
+    """Returns (logits, aux_loss, new_cache): aux_loss is the MoE
+    layers' summed load-balance loss (0 for the other families).
 
     batch: {"tokens": (b, s)} [+ "vision_embeds" (b, T, vision_dim) /
     "audio_frames" (b, T, d)].  mode: "train" (no cache) | "prefill"
@@ -495,8 +676,13 @@ def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
     cache_idx = cache["idx"] if cache is not None else None
     positions = torch.arange(s, device=tokens.device) + (cache_idx or 0)
     new_cache = None if cache is None else {**cache, "idx": cache_idx + s}
+    aux = torch.zeros((), device=tokens.device)
     fam = cfg.family
-    if fam == "hybrid":
+    if fam == "moe":
+        x, aux = _run_moe(params, cfg, x, positions, cache, cache_idx)
+    elif fam == "ssm":
+        x = _run_xlstm(params, cfg, x, cache)
+    elif fam == "hybrid":
         x = _run_hybrid(params, cfg, x, positions, cache, cache_idx)
     elif fam == "vlm":
         x = _run_vlm(params, cfg, batch, x, positions, cache, cache_idx,
@@ -510,4 +696,4 @@ def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
                              cache_idx)
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = _logits(params, x)
-    return logits, torch.zeros((), device=tokens.device), new_cache
+    return logits, aux, new_cache

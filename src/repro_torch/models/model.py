@@ -1,8 +1,8 @@
 """Public model facade — port of ``repro/models/model.py`` (serving part):
 ``build_model(cfg, device)`` -> :class:`Model` with ``init``, ``apply``,
-``prefill``, ``decode_step`` and ``init_cache``, for the ported families
-(dense, hybrid, vlm and audio; ``lm.PORTED_FAMILIES``).  A vlm or audio
-prefill takes the source in its batch (``vision_embeds`` or
+``prefill``, ``decode_step`` and ``init_cache``, for every family of
+``lm.PORTED_FAMILIES`` (dense, hybrid, vlm, audio, moe, ssm).  A vlm or
+audio prefill takes the source in its batch (``vision_embeds`` or
 ``audio_frames``) and stores its cross k/v in the cache, which
 ``decode_step`` reads; ``extras`` pass further batch keys through."""
 from __future__ import annotations

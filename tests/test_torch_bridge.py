@@ -182,3 +182,55 @@ def test_ring_and_cross_caches_round_trip_bit_exact(arch, layers, max_len,
         assert tc["attn"]["pos"].dtype == torch.int32
         assert tuple(tc["attn"]["pos"].shape) == (1, 4096)
     _assert_same_tree(cache, bridge.cache_from_torch(tc))
+
+
+MOE_SSM = [("deepseek-v2-236b", 3), ("deepseek-v3-671b", 3),
+           ("xlstm-350m", 4)]
+
+
+@pytest.mark.parametrize("arch,layers", MOE_SSM)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_and_ssm_params_round_trip_bit_exact(arch, layers, dtype):
+    """moe: stacked ``dense_blocks`` and ``moe_blocks`` (MLA with nested
+    norm scales, the f32 ``router``, the ``shared`` experts) and v3's
+    ``mtp``; ssm: the ``blocks_list`` of mLSTM (f32 ``wgate`` and
+    ``gate_bias``) and sLSTM blocks; both ways unchanged."""
+    jcfg, tcfg = _family_cfgs(arch, layers, dtype)
+    params = jax.tree.map(np.asarray,
+                          jlm.init_params(jax.random.PRNGKey(8), jcfg))
+    model = bridge.params_to_torch(params, tcfg, device="cpu")
+    if tcfg.family == "moe":
+        assert len(model.dense_blocks) == 1 and len(model.moe_blocks) == 2
+        assert model.moe_blocks[0].moe["router"].dtype == torch.float32
+        assert model.dense_blocks[0].mla["q_norm"].dtype == torch.float32
+        assert (model.mtp is not None) == (arch == "deepseek-v3-671b")
+    else:
+        assert [b.slstm is not None for b in model.blocks] == \
+            [False, False, False, True]
+        assert model.blocks[0].mlstm["wgate"].dtype == torch.float32
+    _assert_same_tree(params, bridge.params_from_torch(model))
+
+
+@pytest.mark.parametrize("arch,layers", MOE_SSM)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_and_ssm_caches_round_trip_bit_exact(arch, layers, dtype):
+    """moe's ``ckv``/``krope`` become the column ranges of one ``latent``
+    buffer and come back apart; ssm's mLSTM/sLSTM states cross as they
+    are."""
+    jcfg, tcfg = _family_cfgs(arch, layers, dtype)
+    cache = jlm.init_cache(jcfg, batch=2, max_len=12)
+    rng = np.random.default_rng(9)
+    cache = jax.tree.map(lambda v: np.asarray(jnp.asarray(
+        rng.standard_normal(v.shape), v.dtype)), cache)
+    cache["idx"] = np.asarray(5, np.int32)
+    tc = bridge.cache_to_torch(cache, device="cpu")
+    assert tc["idx"] == 5
+    if tcfg.family == "moe":
+        lat = tc["layers"]["latent"]
+        r = tcfg.mla.kv_lora_rank
+        np.testing.assert_array_equal(
+            _bits(bridge.to_numpy(lat[..., :r])),
+            _bits(cache["layers"]["ckv"]))
+        with pytest.raises(ValueError, match="needs its cfg"):
+            bridge.cache_from_torch(tc)
+    _assert_same_tree(cache, bridge.cache_from_torch(tc, tcfg))

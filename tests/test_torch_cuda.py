@@ -569,17 +569,23 @@ def test_whisper_encoder_shape(cuda, dtype):
 @pytest.mark.parametrize("arch,layers,max_len,prompt", [
     ("zamba2-1.2b", 7, 40000, 4200),    # the 4096-slot ring wraps
     ("whisper-large-v3", 2, 64, 12),
-    ("llama-3.2-vision-90b", 4, 64, 12)])
+    ("llama-3.2-vision-90b", 4, 64, 12),
+    ("deepseek-v2-236b", 2, 160, 150),  # MLA at its published widths
+    ("xlstm-350m", 4, 64, 45)])
 def test_reduced_families_card_matches_cpu(cuda, arch, layers, max_len,
                                            prompt):
     """A reduced f32 model with the same weights on the CPU plain path and
     on the kernel path: prefill logits within 1e-4 and 8 greedy ids
-    equal; the cross families with xgate at 0.5 and a seeded source."""
+    equal; the cross families with xgate at 0.5 and a seeded source;
+    deepseek with its published MLA widths (K2's and K1's MLA mode at
+    (576, 512) over 8 heads)."""
     import copy
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.profile_serve import published_mla_config
     from repro_torch.models import build_model
-    cfg = reduced(get_config(arch), layers=layers)
+    cfg = (published_mla_config(arch, layers) if arch.startswith("deepseek")
+           else reduced(get_config(arch), layers=layers))
     cpu = build_model(cfg, "cpu").init(3)
     for blk in cpu.modules():
         if getattr(blk, "xgate", None) is not None:
@@ -613,3 +619,161 @@ def test_reduced_families_card_matches_cpu(cuda, arch, layers, max_len,
     torch.cuda.synchronize()
     assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 1e-4
     assert out["cuda"][1] == out["cpu"][1]
+
+
+# ---------------------------------------------------------------------------
+# MLA mode (DeepSeek): values narrower than keys, an explicit scale
+# ---------------------------------------------------------------------------
+
+MLA_SCALE = 192 ** -0.5          # 1/sqrt(qk_nope + qk_rope)
+
+
+def _near_exact_close(got, exact, dtype, fewest):
+    """The MLA kernels keep their probabilities in f32; deepseek's peaked
+    rows make the plain version's own bf16 rounding of the normalised
+    probabilities the larger error, so where every row sees at least 128
+    keys the kernel is held, tighter, to the plain version computed with
+    f64 values (probabilities not rounded): ``_wide_tol``."""
+    tol = _wide_tol(dtype) if fewest >= 128 else _tol(dtype)
+    np.testing.assert_allclose(_f32(got), exact.cpu().numpy(), **tol)
+
+
+def _latent(rng, b, S, dtype, device, slots=None):
+    """A latent cache (b, slots, 576) read as its S-row prefix, as the
+    model passes it: keys (b, S, 1, 576), values their first 512
+    columns."""
+    lat = _dev(rng, (b, slots or S, 576), dtype, device)[:, :S, None]
+    return lat, lat[..., :512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,lengths,nsplit", [
+    (923, [923], None), (64, [64], None), (300, [300, 77, 0], None),
+    (300, [300, 77, 1], 1), (300, [300, 5, 211], 3)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mla_decode_kernel_matches_plain(cuda, S, lengths, nsplit, dtype):
+    """K1's MLA mode: 128 heads over one 576-wide latent row per position
+    (n = 1), values its first 512 columns, ragged lengths with a 0-length
+    row, the plan's split and forced ones."""
+    from repro_torch.kernels import decode_attention as k1
+    rng = np.random.default_rng(40)
+    b = len(lengths)
+    q = _dev(rng, (b, 128, 576), dtype, cuda)
+    k, v = _latent(rng, b, S, dtype, cuda, slots=1024)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = k1.run_mla(q, k, v, lens, scale=MLA_SCALE, nsplit=nsplit)
+    want = ref.decode_attention_ref(q, k, v, lens, scale=MLA_SCALE)
+    exact = ref.decode_attention_ref(q, k, v.double(), lens, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 128, 512)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    _near_exact_close(got, exact, dtype, min(lengths))
+    if 0 in lengths:
+        assert float(got[lengths.index(0)].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,sk,q_offset,causal", [
+    (1, 128, 128, 900, 772, True),      # the engine's last chunk
+    (1, 77, 128, 333, 256, True),       # a short last chunk
+    (2, 16, 8, 40, 24, True),
+    (1, 5, 128, 5, 0, True),            # the first chunk, fewer than 64
+    (1, 9, 8, 300, 0, False)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mla_flash_kernel_absorbed_matches_plain(cuda, b, sq, h, sk,
+                                                 q_offset, causal, dtype):
+    """K2's MLA mode, absorbed: a chunk of sq queries at q_offset, h heads
+    over the latent rows (576, values the first 512), kv_len = q_offset +
+    sq, causal (the reference's ``causal & valid``) or not."""
+    from repro_torch.kernels import flash_attention as k2
+    rng = np.random.default_rng(41)
+    q = _dev(rng, (b, sq, h, 576), dtype, cuda)
+    k, v = _latent(rng, b, sk, dtype, cuda, slots=1024)
+    kv_len = min(sk, q_offset + sq)
+    assert k2.mla_kernel_for(q.dtype, 576) == (
+        "flash_mla_mma" if dtype == "bfloat16" else "flash_mla")
+    got = k2.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, scale=MLA_SCALE)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len, scale=MLA_SCALE)
+    exact = ref.flash_attention_ref(q, k, v.double(), causal=causal,
+                                    q_offset=q_offset, kv_len=kv_len,
+                                    scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert got.shape == (b, sq, h, 512)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    _near_exact_close(got, exact, dtype, q_offset + 1 if causal else kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [1, 3, 7])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mla_flash_kernel_absorbed_forced_splits(cuda, nsplit, dtype):
+    """Absorbed chunks with the key range forced into 1, 3 and 7 splits
+    (folded by flash_mla_combine): bf16 on the tensor cores, f32 on the
+    CUDA cores."""
+    from repro_torch.kernels import flash_attention as k2
+    rng = np.random.default_rng(44)
+    q = _dev(rng, (1, 40, 16, 576), dtype, cuda)
+    k, v = _latent(rng, 1, 300, dtype, cuda, slots=1024)
+    got = k2.run_mla(q, k, v, causal=True, q_offset=260, scale=MLA_SCALE,
+                     nsplit=nsplit)
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=260,
+                                   scale=MLA_SCALE)
+    exact = ref.flash_attention_ref(q, k, v.double(), causal=True,
+                                    q_offset=260, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    _near_exact_close(got, exact, dtype, 261)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,causal", [(1, 77, 128, True),
+                                           (2, 130, 8, True),
+                                           (1, 33, 16, False)])
+@pytest.mark.parametrize("nsplit", [None, 2])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mla_flash_kernel_naive_matches_plain(cuda, b, sq, h, causal, nsplit,
+                                              dtype):
+    """K2's MLA mode, naive: MHA (n = h) with q·k 192 wide and values of
+    128, the plan's split and a forced one."""
+    from repro_torch.kernels import flash_attention as k2
+    rng = np.random.default_rng(42)
+    q, k = (_dev(rng, (b, sq, h, 192), dtype, cuda) for _ in range(2))
+    v = _dev(rng, (b, sq, h, 128), dtype, cuda)
+    got = k2.run_mla(q, k, v, causal=causal, scale=MLA_SCALE, nsplit=nsplit)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_mla_mode_refuses_other_widths(cuda):
+    """Widths outside the MLA pairs raise, in either kernel, as does a
+    scale given to the GQA widths; K1 takes only the absorbed pair, and
+    the absorbed pair only with the values as the keys' first columns."""
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k2
+    rng = np.random.default_rng(43)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    for ek, ev in ((192, 128), (320, 256), (128, 128)):
+        q = _dev(rng, (1, 8, ek), "bfloat16", cuda)
+        k = _dev(rng, (1, 8, 1, ek), "bfloat16", cuda)
+        v = _dev(rng, (1, 8, 1, ev), "bfloat16", cuda)
+        with pytest.raises(ValueError, match="MLA widths"):
+            k1.decode_attention(q, k, v, lens, scale=MLA_SCALE)
+    for ek, ev in ((320, 256), (576, 128), (128, 128)):
+        q = _dev(rng, (1, 8, 8, ek), "bfloat16", cuda)
+        k = _dev(rng, (1, 8, 1, ek), "bfloat16", cuda)
+        v = _dev(rng, (1, 8, 1, ev), "bfloat16", cuda)
+        with pytest.raises(ValueError, match="MLA widths"):
+            k2.flash_attention(q, k, v, scale=MLA_SCALE)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    k = _dev(rng, (1, 8, 1, 576), "bfloat16", cuda)
+    v = _dev(rng, (1, 8, 1, 512), "bfloat16", cuda)     # not k's columns
+    with pytest.raises(ValueError, match="first"):
+        k1.decode_attention(_dev(rng, (1, 8, 576), "bfloat16", cuda), k, v,
+                            lens, scale=MLA_SCALE)
+    with pytest.raises(ValueError, match="first 512"):
+        k2.flash_attention(_dev(rng, (1, 8, 8, 576), "bfloat16", cuda), k,
+                           v, scale=MLA_SCALE)

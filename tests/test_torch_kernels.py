@@ -466,12 +466,20 @@ def test_kernel_libraries_hash_every_included_header(tmp_path, monkeypatch):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert [p.name for p in _build.sources("flash_attention")] == [
-        "flash_attention.cu", "common.cuh", "hopper.cuh"]
+        "flash_attention.cu", "common.cuh", "hopper.cuh", "mla.cuh"]
     before = _build.lib_path("flash_attention")
     other = _build.lib_path("topk_retrieval")
     (tmp_path / "hopper.cuh").write_text(
         (tmp_path / "hopper.cuh").read_text() + "\n// edit\n")
     assert _build.lib_path("flash_attention") != before
+    assert _build.lib_path("topk_retrieval") == other
+    # the MLA tile loop is K1's and K2's: an edit rebuilds both
+    before = [_build.lib_path(n) for n in ("decode_attention",
+                                           "flash_attention")]
+    (tmp_path / "mla.cuh").write_text(
+        (tmp_path / "mla.cuh").read_text() + "\n// edit\n")
+    assert all(_build.lib_path(n) != b for n, b in zip(
+        ("decode_attention", "flash_attention"), before))
     assert _build.lib_path("topk_retrieval") == other
 
 
@@ -635,3 +643,142 @@ def test_ssd_mma_plan_fits_shared_memory_and_fills_the_card():
     with pytest.raises(ValueError):
         k5.plan(1, 1, 256, 64, 64, 64, torch.bfloat16,
                 kernel="ssd_chunk_mma", splits=1)
+
+
+# -- the MLA mode of K1 and K2 (host side) ------------------------------------
+
+@pytest.mark.parametrize("b,n,rows,keys,want", [
+    (1, 1, 128, 923, (32, 29)),     # deepseek decode: 4 blocks of 128 heads
+    (1, 1, 128, 64, (32, 2)),
+    (1, 1, 128 * 128, 900, (928, 1)),   # a 128-token prefill chunk
+    (1, 128, 150, 150, (160, 1)),   # the naive forward, n = h = 128
+    (1, 8, 150, 150, (32, 5)),      # the small card check, 8 heads
+])
+def test_mla_plan_at_path_shapes(b, n, rows, keys, want):
+    """Splits of whole key tiles cover the key range, only while the
+    b·n·⌈rows/32⌉ blocks leave the card under two a SM."""
+    from repro_torch.kernels import flash_attention as k2
+    chunk, nsplit = k2.mla_plan(b, n, rows, keys)
+    assert (chunk, nsplit) == want
+    assert chunk % k2.MLA_KEYS == 0
+    assert (nsplit - 1) * chunk < keys <= nsplit * chunk
+    blocks = b * n * -(-rows // k2.MLA_ROWS["flash_mla"])
+    if nsplit > 1:
+        assert blocks * (nsplit - 1) < 2 * k2.SMS
+    for forced in (1, 2):
+        chunk, got = k2.mla_plan(b, n, rows, keys, forced)
+        assert (got - 1) * chunk < keys <= got * chunk
+
+
+def test_mla_kernel_is_chosen_by_type_widths_and_layout():
+    """The tensor cores take the bf16 absorbed form, whose plan targets
+    one 64-row block an SM: a 128-token chunk's 256 blocks are not split,
+    a 16-token one's 32 are."""
+    from repro_torch.kernels import flash_attention as k2
+    assert k2.mla_kernel_for(torch.bfloat16, 576) == "flash_mla_mma"
+    for args in ((torch.float32, 576), (torch.bfloat16, 192),
+                 (torch.float32, 192)):
+        assert k2.mla_kernel_for(*args) == "flash_mla"
+    assert k2.mla_plan(1, 1, 128 * 128, 900, kernel="flash_mla_mma") == \
+        (928, 1)
+    assert k2.mla_plan(1, 1, 16 * 128, 400, kernel="flash_mla_mma") == \
+        (96, 5)
+
+
+def test_mla_plan_refuses_more_splits_than_key_tiles():
+    from repro_torch.kernels import flash_attention as k2
+    with pytest.raises(ValueError, match="splits"):
+        k2.mla_plan(1, 1, 128, 64, 3)
+
+
+def test_mla_bytes_count_a_latent_row_once():
+    """The absorbed form reads each 576-wide latent row once (v is its
+    first 512 columns); values apart add their own bytes."""
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k2
+    lat = torch.zeros(1, 1024, 576, dtype=torch.bfloat16)[:, :300, None]
+    q = torch.zeros(1, 128, 576, dtype=torch.bfloat16)
+    lens = torch.tensor([300], dtype=torch.int32)
+    qo = (128 * 576 + 128 * 512) * 2
+    assert k2.aliases_keys(lat, lat[..., :512])
+    assert k1.mla_bytes_moved(q, lat, lat[..., :512], lens) == \
+        qo + 4 + 300 * 576 * 2
+    v = torch.zeros(1, 300, 1, 512, dtype=torch.bfloat16)
+    assert not k2.aliases_keys(lat, v)
+    assert k1.mla_flops(q, v, lens, 300) == 2 * 128 * (576 + 512) * 300
+    q2 = torch.zeros(1, 4, 128, 576, dtype=torch.bfloat16)
+    assert k2.mla_flops(q2, v, 304, True, 300) == \
+        2 * 128 * (576 + 512) * (301 + 302 + 303 + 304)
+    assert k2.mla_bytes_moved(q2, lat, lat[..., :512], 300, causal=True,
+                              q_offset=296) == \
+        4 * 128 * (576 + 512) * 2 + 300 * 576 * 2
+    # the naive form's values are a tensor of their own
+    qn = torch.zeros(1, 4, 8, 192, dtype=torch.bfloat16)
+    kn = torch.zeros(1, 300, 8, 192, dtype=torch.bfloat16)
+    vn = torch.zeros(1, 300, 8, 128, dtype=torch.bfloat16)
+    assert k2.mla_bytes_moved(qn, kn, vn, 300, causal=False) == \
+        4 * 8 * (192 + 128) * 2 + 300 * 8 * (192 + 128) * 2
+
+
+def test_mla_launch_counts_cover_k1_and_k2():
+    ops.reset_launch_counts()
+    assert ops.mla_launch_counts() == {"decode_attention": 0,
+                                       "flash_attention": 0}
+
+
+@pytest.mark.parametrize("form", ["decode", "absorbed", "naive"])
+def test_mla_wrappers_pass_what_the_entry_points_declare(form, monkeypatch):
+    """The MLA wrappers' host side, run on CPU tensors against a stand-in
+    library: each call passes as many arguments as its entry point's
+    ``argtypes`` declare, with the plan's split count, the kernel choice
+    and the scale; the values of the absorbed form are the keys' first
+    columns, and values apart from them raise."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k2
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, args))
+                return 0
+            return fn
+
+    monkeypatch.setattr(_build, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "library", lambda *a: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    bf = torch.bfloat16
+    lat = torch.zeros(1, 64, 576, dtype=bf)[:, :40, None]
+    if form == "decode":
+        q = torch.zeros(1, 128, 576, dtype=bf)
+        lens = torch.tensor([40], dtype=torch.int32)
+        out = k1.decode_attention(q, lat, lat[..., :512], lens, scale=0.07)
+        assert out.shape == (1, 128, 512)
+        with pytest.raises(ValueError, match="first columns"):
+            k1.decode_attention(q, lat, torch.zeros(1, 40, 1, 512, dtype=bf),
+                                lens, scale=0.07)
+        name, sig = "repro_decode_mla", k1._SIG
+    elif form == "absorbed":
+        q = torch.zeros(1, 8, 128, 576, dtype=bf)
+        out = k2.flash_attention(q, lat, lat[..., :512], q_offset=32,
+                                 scale=0.07)
+        assert out.shape == (1, 8, 128, 512)
+        with pytest.raises(ValueError, match="first 512"):
+            k2.flash_attention(q, lat, torch.zeros(1, 40, 1, 512, dtype=bf),
+                               q_offset=32, scale=0.07)
+        name, sig = "repro_flash_mla", k2._SIG
+    else:
+        q, k = (torch.zeros(1, 40, 8, 192) for _ in range(2))
+        out = k2.flash_attention(q, k, torch.zeros(1, 40, 8, 128),
+                                 scale=0.07)
+        assert out.shape == (1, 40, 8, 128)
+        name, sig = "repro_flash_mla", k2._SIG
+    assert [c[0] for c in calls] == [name]
+    args = calls[0][1]
+    assert len(args) == len(sig[name])
+    assert abs(args[sig[name].index(_build.F)] - 0.07) < 1e-12
+    if form == "absorbed":
+        assert args[1] == args[2] == lat.data_ptr()      # v is k's view
+    # bf16 at q·k 576 runs on the tensor cores (the *_mla_mma kernels)
+    assert args[-2] == (0 if form == "naive" else 1)

@@ -104,8 +104,8 @@ def test_init_params_follows_the_reference_distributions():
 def test_hybrid_cache_layout_and_unported_paths():
     """The hybrid cache stacks the Mamba2 states on a layer axis and holds
     one K/V slice per shared-block application; above 32768 positions it
-    is a 4096-slot ring whose ``pos`` starts at ``NEG_POS``; the unported
-    families raise."""
+    is a 4096-slot ring whose ``pos`` starts at ``NEG_POS``; every family
+    is ported, so no architecture raises "not ported"."""
     from repro_torch.models import lm as tlm
     cfg = t_reduced(t_get_config("zamba2-1.2b"), layers=7)
     c = t_build(cfg, "cpu").init_cache(2, 48)
@@ -123,6 +123,61 @@ def test_hybrid_cache_layout_and_unported_paths():
     assert tuple(ring["pos"].shape) == (1, 4096)
     assert ring["pos"].dtype == torch.int32
     assert bool((ring["pos"] == tlm.NEG_POS).all())
-    for arch in ("deepseek-v2-236b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_build(t_reduced(t_get_config(arch)), "cpu")
+    from repro_torch.configs import list_archs
+    assert set(tlm.PORTED_FAMILIES) == {"dense", "hybrid", "vlm", "audio",
+                                        "moe", "ssm"}
+    for arch in list_archs():
+        cfg = t_get_config(arch)
+        tlm.require_ported(cfg)
+        t_build(t_reduced(cfg), "cpu")
+
+
+@pytest.mark.parametrize("arch,layers", [("deepseek-v2-236b", 3),
+                                         ("deepseek-v3-671b", 3),
+                                         ("xlstm-350m", 4)])
+def test_moe_and_ssm_cache_layouts(arch, layers):
+    """moe: one latent row per position, ``kv_lora_rank + rope`` wide,
+    stacked over every layer; ssm: the mLSTM states stacked over the
+    mLSTM layers (f32 C, n, m; the conv window in the model dtype), the
+    sLSTM states over the sLSTM layers, m starting at -1e30."""
+    cfg = t_reduced(t_get_config(arch), layers=layers)
+    c = t_build(cfg, "cpu").init_cache(2, 24)
+    assert c["idx"] == 0
+    if cfg.family == "moe":
+        m = cfg.mla
+        assert tuple(c["layers"]["latent"].shape) == (
+            layers, 2, 24, m.kv_lora_rank + m.qk_rope_head_dim)
+        return
+    s, d = cfg.ssm, cfg.d_model
+    H, P = s.expand * d // s.head_dim, s.head_dim
+    assert tuple(c["mlstm"]["C"].shape) == (3, 2, H, P, P)
+    assert tuple(c["mlstm"]["conv"].shape) == (3, 2, s.conv_kernel - 1,
+                                               s.expand * d)
+    assert tuple(c["slstm"]["h"].shape) == (1, 2, d)
+    assert bool((c["mlstm"]["m"] == -1e30).all())
+    assert bool((c["slstm"]["m"] == -1e30).all())
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
+                                  "xlstm-350m"])
+def test_new_families_init_apply_and_serve_at_default_reduction(arch):
+    """``build_model(cfg, "cpu").init``, ``apply`` and ``ServingEngine``
+    on ``reduced(get_config(arch))`` as it comes (2 layers): finite
+    logits, a positive MoE aux loss (0 for xLSTM), every request done."""
+    from repro_torch.serving import ServingEngine
+    cfg = t_reduced(t_get_config(arch))
+    model = t_build(cfg, "cpu")
+    params = model.init(0)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 9)))
+    logits, aux, _ = model.apply(params, {"tokens": toks})
+    assert logits.shape == (2, 9, cfg.vocab_size)
+    assert bool(logits.isfinite().all())
+    assert (float(aux) > 0) == (cfg.family == "moe")
+    eng = ServingEngine(cfg, params, max_len=48, prefill_chunk=8,
+                        token_group=3)
+    for n in (3, 20):
+        eng.submit(list(range(3, 3 + n)), max_new=5)
+    done = eng.run_to_completion()
+    assert sorted(len(r.prompt_ids) for r in done) == [3, 20]
+    assert all(r.done and 1 <= len(r.generated) <= 5 for r in done)
