@@ -6,8 +6,10 @@
 Drives ``repro_torch`` (never JAX, never the JAX package) in phases; any
 failure ends the run with a non-zero exit code and no result line:
 
-1. build    — compile the five CUDA kernels (one nvcc per source, in
-              parallel).
+1. build    — compile the six CUDA libraries, K1-K5 and K2's backward
+              (one nvcc per source, in parallel); ptxas' registers,
+              shared memory and spills of every kernel, the backward's
+              four included.
 1b. SASS    — the machine code of the redesigned kernels: K2's bf16
               kernel issues wgmma (HGMMA) and TMA loads (UTMALDG), K3's
               cp.async (LDGSTS), K1's 16-byte global loads (LDG.E.128)
@@ -49,7 +51,16 @@ failure ends the run with a non-zero exit code and no result line:
               their MLA mode at deepseek-v2's shapes (128 heads over the
               576-wide latent rows, values their first 512 columns; K2's
               naive form at q·k 192, v 128), in bf16 (timed beside SDPA
-              with ``scale`` and ``enable_gqa``) and f32.
+              with ``scale`` and ``enable_gqa``) and f32.  K2's backward
+              (``flash_attention_bwd``) against its plain version
+              (``ref.flash_attention_bwd_ref``) from K2's own output and
+              LSE (the LSE held to the plain one too), bf16 and f32: at
+              the training shape (b 8, 256 positions, 16 heads of 64,
+              causal), g in {2, 4, 8} at e 128, whisper's encoder (1500
+              x 1500, 20 heads of 64) and a cross shape (16 queries over
+              1601 keys, g 8, e 128) non-causal, kv_len < sk with a
+              ragged sq, and e 16; bf16 timed beside
+              ``torch.autograd.grad`` through SDPA (backward only).
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -62,7 +73,12 @@ failure ends the run with a non-zero exit code and no result line:
               sLSTM), greedy ids equal and deepseek's no-cache (naive)
               forward against its cached (absorbed) prefill; finite,
               well-shaped outputs of every RAG stage model at the
-              published widths.
+              published widths.  Training: one train step of reduced f32
+              qwen1.5, whisper and xlstm on the card against the CPU
+              plain path from the same weights (the loss and every
+              gradient, none 0 on the card that is not on the CPU), then
+              the losses of 3 AdamW steps; reduced zamba2 and deepseek-v3
+              must raise the no-backward error (K5, K2's MLA mode).
 4. serve    — one isolated W2 query with straggler re-dispatch off (every
               stage runs once, so its launch counts are the query's own),
               then a ``--serve --spec-decode`` run of two staggered
@@ -96,11 +112,25 @@ failure ends the run with a non-zero exit code and no result line:
               experts) or xlstm-350m (whole) in its place; every request
               must finish, and on deepseek K1 and K2 must have launched in
               their MLA mode.
+   train    — qwen1.5-0.5b at its published width (24 layers, d 1024,
+              16 heads of 64, d_ff 2816, vocab 151936, QKV bias, bf16,
+              remat "dots") through ``repro_torch.training.train`` on
+              ``launch.train.synthetic_data``: 12 AdamW steps on one
+              fixed 8 x 256 batch at lr 1e-3 with a warm-up of 1 (the
+              loss must fall by 0.5 or more; counters at 0 just before,
+              read just after: K2's backward 24 launches a step), its
+              median step time, tokens/s and peak memory; then 8 steps
+              with an async checkpoint every 4 and a restart to 12 from
+              the step-8 checkpoint, whose losses must match the
+              uninterrupted run's within 2e-2; a step's forward,
+              backward and AdamW update, each between two syncs, under
+              remat "dots", "none" and "full".
 5. timing   — each kernel, its plain version and the yardstick replayed at
               every shape the isolated W2 query, the zamba2 engine and
               long-context runs, the whisper and vlm runs and the
               deepseek engine gave it, weighted by launches; K1's and K2's
-              MLA mode as rows of their own.
+              MLA mode as rows of their own; K2's backward at the shape
+              the train phase gave it.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one GPU, no network.
@@ -109,11 +139,13 @@ from __future__ import annotations
 
 import collections
 import gc
+import itertools
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -150,6 +182,23 @@ ENGINE_PATH = ("decode_attention", "flash_attention", "ssd_chunk")
 MLA_ROW = {"decode_attention": "decode_attention (MLA mode)",
            "flash_attention": "flash_attention (MLA mode)"}
 MLA_SCALE = 192 ** -0.5       # deepseek: 1/sqrt(qk_nope + qk_rope)
+# K2's backward against its plain version, both computing in f32 from the
+# same inputs and the forward's LSE: (atol as a share of the gradient's
+# largest |value|, rtol).  f32: sums of up to 1500·g products in another
+# order; bf16: the gradients' one rounding to bf16 (a step is 2^-8 to
+# 2^-7 of the value).  K2's LSE against the plain one: (atol, rtol).
+BWD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
+LSE_TOL = (1e-4, 1e-5)
+# a reduced f32 train step on the card against the CPU plain path: the
+# parity tolerance of tests/test_torch_training.py (atol, rtol); the
+# losses of 3 AdamW steps within TRAIN_LOSS_TOL relative
+TRAIN_TOL = (2e-5, 1e-4)
+TRAIN_LOSS_TOL = 1e-4
+# the train phase (profile_serve's TRAIN_ARCH at TRAIN_BATCH x TRAIN_SEQ):
+# the bar of test_loss_decreases_on_fixed_batch over 12 steps, and the
+# restart's limit against the uninterrupted run (the embedding's backward
+# sums with atomics on the card, so two runs are not bit-equal)
+TRAIN_STEPS, TRAIN_DROP, RESTART_TOL = 12, 0.5, 2e-2
 
 
 def say(*a):
@@ -247,6 +296,13 @@ def check_close(got, want, tol, what):
     return err
 
 
+def check_scaled(got, want, tol, what):
+    """check_close with atol = tol[0] · max |want| (a gradient's scale
+    varies with the shape) and rtol = tol[1]."""
+    scale = float(want.float().abs().max())
+    return check_close(got, want, (tol[0] * scale, tol[1]), what)
+
+
 def tol_str(tol):
     if isinstance(tol, tuple):
         return f"{tol[0]:.0e} + {tol[1]:.0e}·|want|"
@@ -306,10 +362,15 @@ def decode_case(b, h, n, S, e, dtype, g, lengths=None, nsplit=None,
 
 
 def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
-               kv_len=None, window=0):
+               kv_len=None, window=0, return_lse=False):
     """With ``window`` > 0, the window mode over an sk-slot ring after
     positions 0..q_offset+sq-1 were written (the chunk's own slots
-    included, as the model writes them before it attends)."""
+    included, as the model writes them before it attends).  With
+    ``return_lse``, the training forward (FlashAttentionFn's): the output
+    and the LSE, held to ``ref.flash_attention_lse_ref``'s (the output
+    within the forward's limit, the LSE within LSE_TOL); the LSE's bytes
+    count in the bound, and the yardstick stays SDPA's forward (its LSE is
+    internal to it)."""
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ref
     q = rand((b, sq, h, e), dtype, g)
@@ -341,9 +402,16 @@ def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
             attn_mask=mask, is_causal=plain_causal,
             enable_gqa=True).transpose(1, 2)
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, **wm)
+    lse_bytes = 4 * b * h * sq if return_lse else 0
     bnd = bound_ms(k2.bytes_moved(q, k, kv_len, causal=causal,
-                                  q_offset=q_offset, **wm),
+                                  q_offset=q_offset, **wm) + lse_bytes,
                    (k2.flops(q, kv_len, causal, q_offset, **wm), dtype))
+    if return_lse:
+        return dict(kernel=lambda: k2.flash_attention(q, k, v, **kw,
+                                                      return_lse=True),
+                    plain=lambda: ref.flash_attention_lse_ref(q, k, v, **kw),
+                    library=library, bound=bnd, pair=True,
+                    tols=(attention_tol(dtype, fewest), LSE_TOL))
     return dict(kernel=lambda: k2.flash_attention(q, k, v, **kw),
                 plain=lambda: ref.flash_attention_ref(q, k, v, **kw),
                 library=library, bound=bnd, tol=attention_tol(dtype, fewest))
@@ -420,6 +488,53 @@ def mla_flash_case(b, sq, h, sk, n, e, ev, dtype, g, causal=True,
                 exact_tol=attention_tol(dtype, fewest))
 
 
+def backward_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
+                  kv_len=None):
+    """K2's backward at one shape: q, k, v and dO random, O and the LSE
+    from K2's forward (``flash_attention(..., return_lse=True)``, what
+    FlashAttentionFn saves); the yardstick is ``torch.autograd.grad``
+    through SDPA with ``enable_gqa`` (a boolean mask off q_offset 0 or
+    kv_len < sk), the backward alone.  ``fwd`` is ((K2's O, its LSE), the
+    plain version's), and ``fwd_tols`` their limits."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import flash_attention_bwd as kb
+    from repro_torch.kernels import ref
+    q, do = rand((b, sq, h, e), dtype, g), rand((b, sq, h, e), dtype, g)
+    k, v = rand((b, sk, n, e), dtype, g), rand((b, sk, n, e), dtype, g)
+    kv_len = sk if kv_len is None else kv_len
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    o, lse = k2.flash_attention(q, k, v, **kw, return_lse=True)
+    plain_causal = causal and q_offset == 0 and kv_len == sk
+    mask = None
+    if causal and not plain_causal:
+        mask = (torch.arange(sq, device="cuda")[:, None] + q_offset
+                >= torch.arange(sk, device="cuda")[None])
+    if kv_len < sk:
+        valid = torch.arange(sk, device="cuda")[None] < kv_len
+        mask = valid if mask is None else mask & valid
+    fewest = (int(mask.sum(-1).min()) if mask is not None
+              else 1 if causal else kv_len)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                         is_causal=plain_causal,
+                                         enable_gqa=True)
+    dout = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    bnd = bound_ms(kb.bytes_moved(q, k, lse),
+                   (kb.flops(q, kv_len, causal, q_offset), dtype))
+    return dict(kernel=lambda: kb.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      **kw),
+                plain=lambda: ref.flash_attention_bwd_ref(q, k, v, o, do,
+                                                          lse, **kw),
+                library=library, bound=bnd, tol=BWD_TOL[dtype], pair=True,
+                scaled=True,
+                fwd=((o, lse), lambda: ref.flash_attention_lse_ref(q, k, v,
+                                                                   **kw)),
+                fwd_tols=(attention_tol(dtype, fewest), LSE_TOL))
+
+
 def topk_case(nq, N, d, k, g, queries=None, corpus=None):
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_retrieval as k3
@@ -486,6 +601,12 @@ def check_case(case, what):
                     f"{what} against the near-exact version")
     if not case.get("pair"):
         got, want = (got,), (want,)
+    if "tols" in case:
+        return max(check_close(a, b, tol, what)
+                   for a, b, tol in zip(got, want, case["tols"]))
+    if case.get("scaled"):
+        return max(check_scaled(a, b, case["tol"], what)
+                   for a, b in zip(got, want))
     return max(check_close(a, b, case["tol"], what)
                for a, b in zip(got, want))
 
@@ -534,7 +655,8 @@ def fmt(t):
 def phase_build():
     from repro_torch.kernels import _build, ops
     t0 = time.monotonic()
-    took = _build.build(k.name for k in ops.KERNELS)
+    took = _build.build(k.name for k in (*ops.KERNELS,
+                                         *ops.BACKWARD_KERNELS))
     say(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s "
         f"(nvcc {_build.nvcc()})")
     # the machine code of the redesigned kernels: wgmma (HGMMA) and TMA
@@ -813,6 +935,7 @@ def phase_kernels():
             say(line)
     check_window_and_cross(g, errs)
     check_mla(g, errs)
+    check_backward(g, errs)
     return errs, k4_time
 
 
@@ -919,6 +1042,124 @@ def check_mla(g, errs):
             say(line)
 
 
+def check_backward(g, errs):
+    """K2's backward against its plain version from K2's own output and
+    LSE (both held to the plain forward's), bf16 (timed) and f32, at the
+    training shape, g 2/4/8 at e 128, whisper's encoder and a cross shape
+    (non-causal), kv_len < sk with a ragged sq at an offset, and e 16 (the
+    reduced models' width).  No gradient may be all 0."""
+    cases = [("training shape b=8 s=256 h=n=16 e=64 causal",
+              (8, 256, 16, 256, 16, 64), {})]
+    cases += [(f"g={gq} e=128 b=2 s=256 causal", (2, 256, 4 * gq, 256, 4,
+                                                  128), {})
+              for gq in (2, 4, 8)]
+    cases += [("whisper encoder 1500x1500 20 heads of 64 non-causal",
+               (1, 1500, 20, 1500, 20, 64), dict(causal=False)),
+              ("cross sq=16 sk=1601 g=8 e=128 non-causal",
+               (1, 16, 64, 1601, 8, 128), dict(causal=False)),
+              ("sq=77 at q_offset=24, kv_len=101 < sk=128, g=2 e=64",
+               (2, 77, 8, 128, 4, 64), dict(q_offset=24, kv_len=101)),
+              ("e=16 b=2 s=40 g=2 causal", (2, 40, 4, 40, 2, 16), {})]
+    for what, shape, kw in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            c = backward_case(*shape, dt, g, **kw)
+            (o, lse), plain_fwd = c["fwd"]
+            want_o, want_lse = plain_fwd()
+            oerr = check_close(o, want_o, c["fwd_tols"][0],
+                               f"K2 output {what} {dt}")
+            lerr = check_close(lse, want_lse, c["fwd_tols"][1],
+                               f"K2 LSE {what} {dt}")
+            got = c["kernel"]()
+            assert all(float(t.float().abs().max()) > 0 for t in got), \
+                f"{what} {dt}: a gradient is all 0"
+            err = check_case(c, f"flash_attention_bwd {what} {dt}")
+            line = (f"[kernels] flash_attention_bwd {what} {str(dt)[6:]}: "
+                    f"dq/dk/dv max|err| {err:.2e} <= "
+                    f"{c['tol'][0]:.0e}·max|want| + {c['tol'][1]:.0e}·|want|;"
+                    f" K2 output max|err| {oerr:.2e}, LSE {lerr:.2e}")
+            if dt == torch.bfloat16:
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], err)
+                line += " | " + fmt(measure(c))
+            say(line)
+
+
+def check_reduced_training():
+    """One train step on the card against the CPU plain path from the same
+    weights, reduced f32 qwen1.5, whisper and xlstm (2 x 64 tokens of
+    ``launch.train.synthetic_data``): the loss within TRAIN_LOSS_TOL and
+    every gradient within TRAIN_TOL (so none is 0 on the card that is not
+    on the CPU), K2's backward launched where the model attends; then the
+    losses of 3 AdamW steps on each device within TRAIN_LOSS_TOL (not the
+    parameters: AdamW divides by sqrt(v), so an element whose gradient is
+    near 0 may move by up to 2·lr on a sign that rounding decides).
+    Reduced zamba2 (a group, so the shared block runs) and deepseek-v3
+    must raise the no-backward error of K5 and of K2's MLA mode."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.models import build_model, lm
+    from repro_torch.training import (AdamWConfig, TrainConfig, adamw_init,
+                                      make_train_step)
+    from repro_torch.training.train_loop import value_and_grad
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    for arch in ("qwen1.5-0.5b", "whisper-large-v3", "xlstm-350m"):
+        cfg = reduced(get_config(arch))
+        init, step = make_train_step(cfg, tcfg, "cpu")   # runs on any device
+        cpu, cpu_state = init(18)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        gpu_state = adamw_init(gpu, tcfg.optimizer)
+        batch = next(synthetic_data(cfg, 2, 64, seed=18, device="cpu"))
+        gbatch = {k: t.cuda() for k, t in batch.items()}
+
+        def loss(p, b, cfg=cfg):
+            return lm.loss_fn(p, cfg, b)
+        ops.reset_launch_counts()
+        (lc, _), gc_ = value_and_grad(loss, cpu, batch)
+        (lg, _), gg = value_and_grad(loss, gpu, gbatch)
+        bwd = ops.backward_launch_counts()["flash_attention_bwd"]
+        lerr = abs(float(lg) - float(lc)) / abs(float(lc))
+        assert lerr <= TRAIN_LOSS_TOL, f"{arch}: loss {lg} vs {lc}"
+        gerr = max(check_close(gg[k].cpu(), gc_[k], TRAIN_TOL,
+                               f"{arch} gradient {k}") for k in gc_)
+        assert all(float(gg[k].abs().max()) > 0 for k in gc_
+                   if float(gc_[k].abs().max()) > 0), f"{arch}: a 0 gradient"
+        assert (bwd > 0) == (cfg.family != "ssm"), (arch, bwd)
+        losses = {}
+        for dev, (p, st, b) in (("cpu", (cpu, cpu_state, batch)),
+                                ("cuda", (gpu, gpu_state, gbatch))):
+            losses[dev] = []
+            for _ in range(3):
+                p, st, m = step(p, st, b)
+                losses[dev].append(float(m["loss"]))
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                                   rtol=TRAIN_LOSS_TOL)
+        say(f"[models] train step {cfg.name} f32 reduced ({cfg.family}), "
+            f"card vs CPU plain path: loss rel err {lerr:.2e}, gradients "
+            f"({len(gc_)} leaves) max|err| {gerr:.2e} <= "
+            f"{tol_str(TRAIN_TOL)}, K2 backward launches {bwd}; 3 AdamW "
+            f"steps' losses card {losses['cuda']} cpu {losses['cpu']}")
+    for arch, layers, name in (("zamba2-1.2b", 7, "ssd_chunk (K5)"),
+                               ("deepseek-v3-671b", None,
+                                "flash_attention (K2) in MLA mode")):
+        cfg = (reduced(get_config(arch)) if layers is None
+               else reduced(get_config(arch), layers=layers))
+        params = build_model(cfg, "cuda").init(18, trainable=True)
+        batch = next(synthetic_data(cfg, 2, 16, seed=18, device="cuda"))
+        try:
+            loss_, _ = lm.loss_fn(params, cfg, batch)
+            loss_.backward()
+        except RuntimeError as e:
+            assert f"{name} has no backward kernel" in str(e), str(e)
+            say(f"[models] train step {cfg.name} reduced ({cfg.family}) on "
+                f"the card raises: {str(e)[:90]}...")
+        else:
+            raise AssertionError(f"{arch} trained on the card through a "
+                                 f"kernel with no backward")
+
+
 def phase_models():
     import copy
 
@@ -959,6 +1200,7 @@ def phase_models():
     check_reduced_zamba2()
     check_reduced_ring_and_cross()
     check_reduced_mla_and_xlstm()
+    check_reduced_training()
     # published widths: every stage model gives finite, well-shaped output
     tok, emb, rr, rw, chat, draft = build_pipeline(0, device="cuda",
                                                    reduced=False)
@@ -1169,15 +1411,19 @@ def _k1_key(q, kc, vc, lengths, *, kv_positions=None, q_pos=None,
 
 
 def _k2_key(q, k, v, *, causal=True, q_offset=0, kv_len=None,
-            kv_positions=None, window=0, scale=None):
+            kv_positions=None, window=0, scale=None, return_lse=False):
     """A ring's state follows from q_offset: from q_offset = sk - sq on the
     ring is full and each query sees the same number of slots, so the
-    offset is clamped there.  An MLA-mode call is keyed "mla"."""
+    offset is clamped there.  An MLA-mode call is keyed "mla", the
+    training forward (``return_lse``) "lse"."""
     b, sq, h, e = q.shape
     sk = k.shape[1]
     if scale is not None or v.shape[-1] != e:
         return ("mla", b, sq, h, sk, k.shape[2], e, v.shape[-1], q.dtype,
                 causal, q_offset, kv_len)
+    if return_lse:
+        return ("lse", b, sq, h, sk, k.shape[2], e, q.dtype, causal,
+                q_offset, kv_len)
     if window > 0:
         return (b, sq, h, sk, k.shape[2], e, q.dtype, causal,
                 min(q_offset, sk - sq), kv_len, window)
@@ -1194,6 +1440,12 @@ def _k4_key(x, w, sx, sw, out_dtype=torch.bfloat16):
 
 def _k5_key(x, dt, B, C, dA):
     return (*x.shape, B.shape[-1], x.dtype, B.stride(3) == 0)
+
+
+def _kb_key(q, k, v, o, do, lse, *, causal, q_offset=0, kv_len=None):
+    b, sq, h, e = q.shape
+    return (b, sq, h, k.shape[1], k.shape[2], e, q.dtype, causal, q_offset,
+            kv_len)
 
 
 # per kernel of repro_torch.kernels.ops.KERNELS: the shape key of one
@@ -1216,11 +1468,14 @@ REPLAY = {
         else decode_case(*key, g)),
     MLA_ROW["decode_attention"]: (_k1_key, _mla_k1_case),
     MLA_ROW["flash_attention"]: (_k2_key, _mla_k2_case),
-    "flash_attention": (_k2_key, lambda key, g: flash_case(*key[:7], g,
-                                                           *key[7:])),
+    "flash_attention": (_k2_key, lambda key, g: flash_case(
+        *key[1:8], g, *key[8:], return_lse=True) if key[0] == "lse"
+        else flash_case(*key[:7], g, *key[7:])),
     "topk_retrieval": (_k3_key, lambda key, g: topk_case(*key, g)),
     "int8_matmul": (_k4_key, lambda key, g: int8_case(*key, g)),
     "ssd_chunk": (_k5_key, lambda key, g: ssd_case(*key, g)),
+    "flash_attention_bwd": (_kb_key, lambda key, g: backward_case(
+        *key[:7], g, causal=key[7], q_offset=key[8], kv_len=key[9])),
 }
 
 
@@ -1236,7 +1491,7 @@ class ShapeLog:
         self.raw = collections.defaultdict(collections.Counter)
         self._seen = None
         self.mods = {k.name: (k.module, REPLAY[k.name][0])
-                     for k in ops.KERNELS}
+                     for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)}
         self.orig = {}
 
     def __enter__(self):
@@ -1558,6 +1813,84 @@ def phase_engine(path):
     return summary, shapes.seen
 
 
+def phase_train():
+    """qwen1.5-0.5b at its published width in bf16 with remat "dots",
+    random weights from seed 18, through ``repro_torch.training.train``
+    on one fixed batch of ``launch.train.synthetic_data`` (8 x 256): 12
+    AdamW steps at lr 1e-3, warm-up 1, every step logged (so each ends in
+    a sync), counters at 0 just before and read just after.  Then 8 steps
+    with an async checkpoint every 4 (keep 1) and ``train(steps=12,
+    restore=True)``, which must start at step 8 and match the 12-step
+    run's losses within RESTART_TOL."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (TRAIN_ARCH, TRAIN_BATCH,
+                                                  TRAIN_SEQ)
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.training import AdamWConfig, TrainConfig, train
+    _free()
+    cfg = get_config(TRAIN_ARCH)
+    assert (cfg.num_layers, cfg.d_model, cfg.dtype, cfg.remat) == (
+        24, 1024, "bfloat16", "dots"), cfg
+    dev = torch.device("cuda")
+    batch = next(synthetic_data(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=18,
+                                device=dev))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                     # just before the main path
+    with ShapeLog() as shapes:
+        params, state, hist = train(cfg, itertools.repeat(batch),
+                                    steps=TRAIN_STEPS, tcfg=tcfg, seed=18,
+                                    log_every=1, device=dev)
+    counts = ops.launch_counts()                  # just after
+    bwd = ops.backward_launch_counts()
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, state
+    losses = [h["loss"] for h in hist]
+    # each logged step ends in a sync (the loss read): a step's time is
+    # the gap between two logs; the first step builds nothing but warms up
+    step_s = statistics.median(b["wall"] - a["wall"]
+                               for a, b in zip(hist[1:], hist[2:]))
+    summary = dict(model=cfg.name, params_b=n_params / 1e9,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                   losses=losses, step_ms_median=1e3 * step_s,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=counts, bwd_launches=bwd,
+                   k2_forward_per_step=counts["flash_attention"] / TRAIN_STEPS,
+                   k2_backward_per_step=(bwd["flash_attention_bwd"]
+                                         / TRAIN_STEPS))
+    say(f"[train] {json.dumps(summary)}")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] <= losses[0] - TRAIN_DROP, losses
+    assert bwd["flash_attention_bwd"] == cfg.num_layers * TRAIN_STEPS, bwd
+    _free()
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d, keep=1)
+        t0 = time.perf_counter()
+        train(cfg, itertools.repeat(batch), steps=8, tcfg=tcfg, seed=18,
+              checkpointer=ck, checkpoint_every=4, device=dev)
+        saved = time.perf_counter() - t0
+        assert ck.available_steps() == [8] and ck.latest_step() == 8
+        t0 = time.perf_counter()
+        rest = train(cfg, itertools.repeat(batch), steps=TRAIN_STEPS,
+                     tcfg=tcfg, seed=18, checkpointer=ck, restore=True,
+                     log_every=1, device=dev)[2]
+        resumed = time.perf_counter() - t0
+    assert [h["step"] for h in rest] == list(range(8, TRAIN_STEPS)), rest
+    got = [h["loss"] for h in rest]
+    np.testing.assert_allclose(got, losses[8:], rtol=RESTART_TOL)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses[8:]))
+    say(f"[train] 8 steps with an async checkpoint every 4 in "
+        f"{saved:.1f}s; restart from step {rest[0]['step']} to "
+        f"{TRAIN_STEPS} in {resumed:.1f}s: losses {got} against the "
+        f"uninterrupted run's {losses[8:]} (max rel diff {rel:.2e} <= "
+        f"{RESTART_TOL:.0e})")
+    _free()
+    return summary, shapes.seen
+
+
 def _split_mla(seen):
     """A path's shapes with K1's and K2's MLA-mode keys under their own
     rows (MLA_ROW)."""
@@ -1664,13 +1997,16 @@ def main() -> int:
     vlm, seen_vlm = phase_cross("vlm")
     deepseek, seen_deepseek = phase_engine("deepseek-engine")
     xlstm, _ = phase_engine("xlstm-engine")
+    train_run, seen_train = phase_train()
     timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng,
                            "zamba2_long": seen_long, "whisper": seen_whisper,
                            "vlm": seen_vlm,
-                           "deepseek_engine": seen_deepseek})
+                           "deepseek_engine": seen_deepseek,
+                           "train": seen_train})
     runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng,
             "zamba2_long": long, "whisper": whisper, "vlm": vlm,
-            "deepseek_engine": deepseek, "xlstm_engine": xlstm}
+            "deepseek_engine": deepseek, "xlstm_engine": xlstm,
+            "train": train_run}
     table = []
     from repro_torch.kernels import ops
     rows = [(k, k.name, lambda r, n=k.name: r["launches"][n]
@@ -1678,6 +2014,9 @@ def main() -> int:
     rows += [(k, MLA_ROW[k.name],
               lambda r, n=k.name: r.get("mla_launches", {}).get(n, 0))
              for k in ops.KERNELS if k.name in MLA_ROW]
+    rows += [(k, k.name, lambda r, n=k.name: r.get("bwd_launches",
+                                                   {}).get(n, 0))
+             for k in ops.BACKWARD_KERNELS]
     for k, name, launched in rows:
         by_path = {p: launched(r) for p, r in runs.items()}
         if name in timing:
@@ -1690,8 +2029,13 @@ def main() -> int:
             t = dict(k4_time, max_abs_err=0.0)
             extra = dict(timed_at="M=128 K=2048 N=4096 (on no path)",
                          timed_kernel="int8_mm_wgmma")
+        if isinstance(k, ops.BackwardKernel):   # no TPU kernel: the JAX
+            replaces = k.autodiff_of            # function XLA differentiates
+            extra.update(differentiates=k.differentiates)
+        else:
+            replaces = k.replaces
         table.append(dict(
-            name=name, route="cuda", source=k.source, replaces=k.replaces,
+            name=name, route="cuda", source=k.source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(errs[name], t["max_abs_err"]),
             ms=t["ms"], host_ms=t["host_ms"], plain_ms=t["plain_ms"],

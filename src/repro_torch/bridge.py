@@ -28,6 +28,11 @@ bf16 leaves are numpy's ``bfloat16`` (registered by ml_dtypes, which the
 JAX side loads); they cross as raw 16-bit words: numpy uint16 -> torch
 int16 -> ``.view(torch.bfloat16)``, and back.  The round trip is
 bit-exact.
+
+Training: gradients (:func:`grads_from_torch`) and the AdamW state
+(:func:`adamw_state_to_torch`, :func:`adamw_state_from_torch`; the port's
+moments are ``{name: tensor}`` in ``named_parameters`` order) cross in
+the parameters' tree layout.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (LM, MTP, AudioLM, DenseBlock, DenseLM,
                                    Encoder, HybridLM, MambaBlock, MoEBlock,
                                    MoeLM, VlmGroup, VlmLM, XlstmBlock,
-                                   XlstmLM, require_ported)
+                                   XlstmLM, require_ported, set_trainable)
+from repro_torch.training.optimizer import AdamWState
 
 DENSE_GROUPS = ("ln1", "attn", "ln2", "mlp")
 CROSS_GROUPS = ("ln_x", "xattn")
@@ -127,8 +133,14 @@ def _n_stacked(tree: Mapping[str, Any]) -> int:
 
 
 def params_to_torch(tree: Mapping[str, Any], cfg: ModelConfig,
-                    device: DeviceLike = None) -> LM:
-    """JAX params (numpy leaves) -> the family's LM module on ``device``."""
+                    device: DeviceLike = None, trainable: bool = False) -> LM:
+    """JAX params (numpy leaves) -> the family's LM module on ``device``;
+    ``trainable``: every leaf requires a gradient."""
+    return set_trainable(_params_to_torch(tree, cfg, device), trainable)
+
+
+def _params_to_torch(tree: Mapping[str, Any], cfg: ModelConfig,
+                     device: DeviceLike) -> LM:
     require_ported(cfg)
     dev = resolve_device(device)
     final_norm = _group(tree["final_norm"], dev)
@@ -254,6 +266,57 @@ def params_from_torch(model: LM) -> Dict[str, Any]:
     if model.lm_head is not None:
         tree["lm_head"] = model.lm_head
     return _to_numpy_tree(tree)
+
+
+def _tree_of(model: LM, values: Mapping[str, torch.Tensor]
+             ) -> Dict[str, Any]:
+    """``values`` ({parameter name: tensor}, one per parameter) in the
+    JAX tree layout of ``model``'s parameters: each parameter's data is
+    swapped for its value while :func:`params_from_torch` reads the
+    module, then put back."""
+    named = list(model.named_parameters())
+    saved = [p.data for _, p in named]
+    try:
+        for name, p in named:
+            p.data = values[name].detach()
+        return params_from_torch(model)
+    finally:
+        for (_, p), d in zip(named, saved):
+            p.data = d
+
+
+def grads_from_torch(model: LM,
+                     grads: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> Dict[str, Any]:
+    """Gradients -> the JAX params' tree layout (numpy leaves): ``grads``
+    ({name: tensor}, as the train step's), else each parameter's
+    ``.grad`` (zeros where it has none)."""
+    if grads is None:
+        grads = {name: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 for name, p in model.named_parameters()}
+    return _tree_of(model, grads)
+
+
+def adamw_state_to_torch(state: Sequence[Any], cfg: ModelConfig,
+                         device: DeviceLike = None) -> AdamWState:
+    """The reference's ``AdamWState(step, m, v)`` (numpy leaves, m and v
+    in the params' tree layout) -> the port's (m and v keyed like the
+    model's ``named_parameters``, step a 0-d int32 tensor)."""
+    step, m, v = state
+    dev = resolve_device(device)
+
+    def named(tree):
+        return {k: t.detach() for k, t in
+                _params_to_torch(tree, cfg, dev).named_parameters()}
+    return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                   device=dev), named(m), named(v))
+
+
+def adamw_state_from_torch(state: AdamWState, model: LM):
+    """The port's ``AdamWState`` -> (step as int32 numpy, m, v in the JAX
+    params' tree layout), the fields of the reference's state."""
+    return (np.asarray(int(state.step), dtype=np.int32),
+            _tree_of(model, state.m), _tree_of(model, state.v))
 
 
 def cache_to_torch(cache: Mapping[str, Any],

@@ -23,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -225,6 +225,11 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for ctypes, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_ptr(t: torch.Tensor) -> int:

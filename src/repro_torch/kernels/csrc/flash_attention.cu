@@ -57,6 +57,15 @@
 // accumulation, fully masked rows output 0.  q-head hh reads kv head
 // hh / (h/n), the (b,sq,n,g,e) grouping of layers._gqa_scores.
 //
+// LSE output (training): when the caller passes an lse pointer, each
+// query row's log-sum-exp of its visible scaled scores, f32 (b, h, sq) in
+// natural-log units, is written beside the output (-inf for a row with no
+// visible key): flash_fwd's m is already natural, flash_fwd_wgmma's m runs
+// in base 2 (exp2f of pre-scaled scores), so there lse = (m + log2 l)·ln 2,
+// converted once in the epilogue or in flash_combine.  K2's backward
+// (flash_attention_bwd.cu) recomputes P from it.  Serving passes null and
+// writes nothing.
+//
 // MLA mode (flash_mla_mma, flash_mla, flash_mla_combine): DeepSeek's
 // multi-head latent attention, values narrower than keys and an explicit
 // scale: the absorbed prefill chunk (q·k 576, v 512 = the keys' first
@@ -76,6 +85,8 @@ namespace {
 // f32: CUDA-core FMAs
 // ---------------------------------------------------------------------------
 
+constexpr float kLn2 = 0.6931471805599453f;
+
 constexpr int kBQ = 32;
 constexpr int kBK = 32;
 constexpr int kThreads = 128;
@@ -92,7 +103,8 @@ template <typename T, int E>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ kv_positions,
-          T* __restrict__ out, int sq, int h, int n, int kv_len,
+          T* __restrict__ out, float* __restrict__ lse, int sq, int h,
+          int n, int kv_len,
           int q_offset, int causal, int window, long long qsb,
           long long qss, long long qsh, long long ksb, long long kss,
           long long ksn, long long vsb, long long vss, long long vsn) {
@@ -193,7 +205,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (lane == 0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) l_s[warp + kWarps * r] = l_run[r];
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int qi = warp + kWarps * r;
+      l_s[qi] = l_run[r];
+      if (lse != nullptr && q0 + qi < sq)
+        lse[((long long)bi * h + hh) * sq + q0 + qi] =
+            l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : -CUDART_INF_F;
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -209,7 +227,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int E>
 int launch(const void* q, const void* k, const void* v,
-           const int* kv_positions, void* out, int b, int sq, int h, int n,
+           const int* kv_positions, void* out, float* lse, int b, int sq,
+           int h, int n,
            int kv_len, int q_offset, int causal, int window, long long qsb,
            long long qss, long long qsh, long long ksb, long long kss,
            long long ksn, long long vsb, long long vss, long long vsn,
@@ -223,8 +242,8 @@ int launch(const void* q, const void* k, const void* v,
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   flash_fwd<T, E><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_positions, static_cast<T*>(out), sq, h,
-      n, kv_len, q_offset, causal, window, qsb, qss, qsh, ksb, kss, ksn, vsb,
+      static_cast<const T*>(v), kv_positions, static_cast<T*>(out), lse, sq,
+      h, n, kv_len, q_offset, causal, window, qsb, qss, qsh, ksb, kss, ksn, vsb,
       vss, vsn);
   return cudaGetLastError();
 }
@@ -264,8 +283,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 const int* __restrict__ kv_positions,
-                __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
-                float* __restrict__ part_ml, int b, int sq, int h, int n,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                float* __restrict__ part_o, float* __restrict__ part_ml,
+                int b, int sq, int h, int n,
                 int kv_len, int q_offset, int causal, int window,
                 int per_tile, int chunk, int nsplit) {
   using TL = Tile<E>;
@@ -458,6 +478,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     const long long row = ((long long)bi * sq + pos) * h + kvh * g + r % g;
     const int col = 2 * (lane & 3);
     if (nsplit == 1) {
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((long long)bi * h + kvh * g + r % g) * sq + pos] =
+            l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : -CUDART_INF_F;
       __nv_bfloat16* orow = out + row * E + col;
 #pragma unroll
       for (int c = 0; c < E / 8; ++c) {
@@ -485,13 +508,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 // units): a block of kWG threads takes kWG / E output rows (b, position,
 // head), thread t column t % E of row t / E.  A split that saw no key of
 // the row has l = 0 and is skipped; a row with no visible key at all
-// outputs 0.
+// outputs 0 (and lse -inf).  With lse, column 0's thread writes the row's
+// natural-log LSE at (b, head, position).
 template <int E>
 __global__ void __launch_bounds__(kWG)
 flash_combine(const float* __restrict__ part_o,
               const float* __restrict__ part_ml,
-              __nv_bfloat16* __restrict__ out, long long rows_total,
-              int nsplit) {
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+              long long rows_total, int nsplit, int sq, int h) {
   const long long row = (long long)blockIdx.x * (kWG / E) + threadIdx.x / E;
   const int j = threadIdx.x % E;
   if (row >= rows_total) return;
@@ -511,12 +535,19 @@ flash_combine(const float* __restrict__ part_o,
     }
   }
   out[row * E + j] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+  if (lse != nullptr && j == 0) {
+    const long long head = row % h, pos = (row / h) % sq,
+                    bi = row / ((long long)h * sq);
+    lse[(bi * h + head) * sq + pos] =
+        l > 0.f ? (m + log2f(l)) * kLn2 : -CUDART_INF_F;
+  }
 }
 
 template <int E>
 int launch_wgmma(const void* q, const void* k, const void* v,
-                 const int* kv_positions, void* out, void* part_o,
-                 void* part_ml, int b, int sq, int h, int n, int sk,
+                 const int* kv_positions, void* out, float* lse,
+                 void* part_o, void* part_ml, int b, int sq, int h, int n,
+                 int sk,
                  int kv_len, int q_offset, int causal, int window,
                  long long qsb, long long qss, long long qsh, long long ksb,
                  long long kss, long long ksn, long long vsb, long long vss,
@@ -547,7 +578,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   const int mtiles = (sq + per_tile - 1) / per_tile;
   flash_fwd_wgmma<E><<<dim3(mtiles * nsplit, n, b), kWG, TL::kSmem,
                        stream>>>(
-      qm, km, vm, kv_positions, static_cast<__nv_bfloat16*>(out),
+      qm, km, vm, kv_positions, static_cast<__nv_bfloat16*>(out), lse,
       static_cast<float*>(part_o), static_cast<float*>(part_ml), b, sq, h, n,
       kv_len, q_offset, causal, window, per_tile, chunk, nsplit);
   cudaError_t e2 = cudaGetLastError();
@@ -556,7 +587,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   flash_combine<E><<<(rows_total + kWG / E - 1) / (kWG / E), kWG, 0,
                      stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(out), rows_total, nsplit);
+      static_cast<__nv_bfloat16*>(out), lse, rows_total, nsplit, sq, h);
   return cudaGetLastError();
 }
 
@@ -599,10 +630,12 @@ int launch_mla(const repro_mla::Args& a, cudaStream_t stream) {
 // and its pointers 16-byte aligned (TMA), and part_o (nsplit,b,sq,h,e) /
 // part_ml (nsplit,b,sq,h,2) are f32 scratch when nsplit > 1.  f32 runs
 // flash_fwd and ignores the plan and the scratch.  window > 0 is the
-// window mode, with kv_positions (sk,) int32.
+// window mode, with kv_positions (sk,) int32.  lse, if not null, is f32
+// (b, h, sq): each row's natural-log LSE (training; serving passes null).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* kv_positions,
-    void* out, void* part_o, void* part_ml, int dtype, int b, int sq, int h,
+    void* out, void* lse, void* part_o, void* part_ml, int dtype, int b,
+    int sq, int h,
     int n, int sk, int e, int kv_len, int q_offset, int causal, int window,
     long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksn, long long vsb, long long vss,
@@ -611,9 +644,10 @@ extern "C" int repro_flash_attention(
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto kp = static_cast<const int*>(kv_positions);
+  auto ls = static_cast<float*>(lse);
   if (dtype == repro::kBF16) {
 #define REPRO_WGMMA(E)                                                      \
-  return launch_wgmma<E>(q, k, v, kp, out, part_o, part_ml, b, sq, h, n,   \
+  return launch_wgmma<E>(q, k, v, kp, out, ls, part_o, part_ml, b, sq, h, n, \
                          sk, kv_len, q_offset, causal, window, qsb, qss,    \
                          qsh, ksb, kss, ksn, vsb, vss, vsn, per_tile, chunk, \
                          nsplit, st)
@@ -623,9 +657,9 @@ extern "C" int repro_flash_attention(
 #undef REPRO_WGMMA
   } else if (dtype == repro::kF32) {
 #define REPRO_FLASH(E)                                                      \
-  return launch<float, E>(q, k, v, kp, out, b, sq, h, n, kv_len, q_offset,  \
-                          causal, window, qsb, qss, qsh, ksb, kss, ksn, vsb, \
-                          vss, vsn, st)
+  return launch<float, E>(q, k, v, kp, out, ls, b, sq, h, n, kv_len,        \
+                          q_offset, causal, window, qsb, qss, qsh, ksb, kss, \
+                          ksn, vsb, vss, vsn, st)
     if (e == 16) REPRO_FLASH(16);
     if (e == 64) REPRO_FLASH(64);
     if (e == 128) REPRO_FLASH(128);

@@ -25,6 +25,13 @@ v a view of k's first 512 columns, n = 1, g = 128) and the naive forward
 ``flash_mla`` (CUDA cores) for the rest; the key range is split by
 :func:`mla_plan` and the splits folded by ``flash_mla_combine``.  Any
 other pair of widths, or absorbed values apart from the keys, raises.
+
+Training: ``flash_attention(..., return_lse=True)`` also returns each
+query row's natural-log LSE, f32 (b, h, sq), which the kernels write when
+given a pointer (serving passes null); :class:`FlashAttentionFn` saves q,
+k, v, the output and the LSE, and its backward is K2's backward kernel
+(``kernels/flash_attention_bwd.py``).  Window and MLA mode have no
+backward (``kernels/ops.py`` raises if one is asked for on the card).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels._build import F, I, L, P, require
 
 HEAD_DIMS = (16, 64, 128)
@@ -43,7 +51,7 @@ MIN_SPLIT_TILES = 2     # key tiles a split must have to be worth a combine
 MLA_DIMS = ((576, 512), (192, 128))   # (q·k, v) widths of the MLA mode
 MLA_ROWS = {"flash_mla": 32, "flash_mla_mma": 64}   # rows of a block
 MLA_KEYS = 32           # keys of an MLA tile
-_SIG = {"repro_flash_attention": [P] * 7 + [I] * 11 + [L] * 9 + [I] * 3
+_SIG = {"repro_flash_attention": [P] * 8 + [I] * 11 + [L] * 9 + [I] * 3
         + [P],
         "repro_flash_mla": [P] * 6 + [I] * 11 + [F] + [I] * 2 + [L] * 9
         + [I] + [P]}
@@ -57,16 +65,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[int] = None,
                     kv_positions: Optional[torch.Tensor] = None,
                     window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    return_lse: bool = False):
     """q (b, sq, h, e); k/v (b, sk, n, e) with h % n == 0 -> (b, sq, h, e)
     in q's dtype.  Window mode: ``window`` > 0 and ``kv_positions`` (sk,)
     int32, each slot's position.  MLA mode: v (b, sk, n, e_v) narrower
-    than k, or a ``scale`` (else 1/sqrt(e)) -> (b, sq, h, e_v)."""
-    if scale is not None or v.shape[-1:] != k.shape[-1:]:
+    than k, or a ``scale`` (else 1/sqrt(e)) -> (b, sq, h, e_v).
+
+    ``return_lse`` (neither mode) -> (out, lse): lse f32 (b, h, sq), each
+    query row's log-sum-exp of its visible scores scaled by 1/sqrt(e),
+    -inf for a row with no visible key (as
+    ``ref.flash_attention_lse_ref``)."""
+    mla = scale is not None or v.shape[-1:] != k.shape[-1:]
+    require(not (return_lse and (mla or window > 0
+                                 or kv_positions is not None)),
+            "flash_attention: the LSE output has no window or MLA mode")
+    if mla:
         require(window == 0 and kv_positions is None,
                 "flash_attention: the MLA mode has no window mode")
         return run_mla(q, k, v, causal=causal, q_offset=q_offset,
                        kv_len=kv_len, scale=scale)
+    if not return_lse:
+        return _run(q, k, v, causal, q_offset, kv_len, kv_positions,
+                    window, None)
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return _run(q, k, v, causal, q_offset, kv_len, None, 0, lse), lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K2 with a gradient, on the card: the forward saves q, k, v, the
+    output and its LSE; the backward is K2's backward kernel.  Module
+    globals are read at call time, so a wrapper set on
+    :func:`flash_attention` sees the training forward too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int,
+                kv_len: Optional[int]):
+        out, lse = flash_attention(q, k, v, causal=causal,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, dout, lse,
+                                              **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def _run(q, k, v, causal, q_offset, kv_len, kv_positions, window, lse):
     _build.check_cuda("flash_attention", [q, k, v] + (
         [] if kv_positions is None else [kv_positions]))
     require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
@@ -114,7 +165,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kv_positions is None else kv_positions.data_ptr(),
-        out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+        out.data_ptr(), _build.ptr(lse),
+        part_o.data_ptr(), part_ml.data_ptr(),
         _build.DTYPE_CODES[q.dtype], b, sq, h, n, sk, e, kv_len, q_offset,
         int(causal), window, *tma_strides(q), *tma_strides(k),
         *tma_strides(v), per_tile, chunk, nsplit, _build.stream_ptr(q))
@@ -173,7 +225,7 @@ def run_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.library("flash_attention", _SIG)
     rc = lib.repro_flash_mla(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _ptr(part_o), _ptr(part_ml), _build.DTYPE_CODES[q.dtype], b, sq, h,
+        _build.ptr(part_o), _build.ptr(part_ml), _build.DTYPE_CODES[q.dtype], b, sq, h,
         n, sk, e, ev, kv_len, q_offset, int(causal), scale, chunk, nsplit,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(kernel == "flash_mla_mma"), _build.stream_ptr(q))
@@ -181,10 +233,6 @@ def run_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches.add()
     mla_launches.add()
     return out
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
 
 
 def rows_aligned(t: torch.Tensor) -> bool:

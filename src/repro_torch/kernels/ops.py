@@ -1,8 +1,17 @@
-"""Public kernel entry points, and the one table of the port's kernels.
+"""Public kernel entry points, the table of the port's kernels and the
+table of its backward kernels.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``);
 a CUDA tensor goes to the hand-written kernel, which raises on anything it
 does not take.  There is no fallback from one to the other.
+
+Gradients: on the CPU the plain versions are differentiated by
+autograd.  On the card, when grad mode is on and an input requires a
+gradient, ``flash_attention`` (no window or MLA mode) runs
+``flash_attention.FlashAttentionFn``, whose backward is K2's backward
+kernel, and every other kernel call raises a ``RuntimeError`` naming the
+kernel (K1, K3, K4, K5, K2's window and MLA modes): their outputs carry no
+``grad_fn``, so a gradient would silently stop at them.
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import int8_matmul as _int8
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_chunk as _ssd
@@ -58,6 +68,46 @@ KERNELS = (
 )
 
 
+@dataclass(frozen=True)
+class BackwardKernel:
+    """One hand-written backward kernel: the gradient of the ``KERNELS``
+    row ``differentiates``.  ``autodiff_of`` is the JAX function
+    (file:line) whose XLA autodiff it replaces: the JAX package has no
+    backward Pallas kernel.  ``module`` holds the wrapper (named like the
+    kernel) and its own launch counter."""
+    name: str
+    module: ModuleType
+    differentiates: str
+    autodiff_of: str
+    symbols: Tuple[str, ...]
+
+    @property
+    def source(self) -> str:
+        return f"src/repro_torch/kernels/csrc/{self.name}.cu"
+
+
+BACKWARD_KERNELS = (
+    BackwardKernel("flash_attention_bwd", _flash_bwd, "flash_attention",
+                   "src/repro/models/layers.py:116",
+                   ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq",
+                    "flash_bwd_sum")),
+)
+
+
+def _wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if a kernel without a backward is asked for a gradient."""
+    if _wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel: an input requires a gradient "
+            f"under grad mode, and the kernel's output would drop it "
+            f"(run under torch.no_grad(), or train this path on the CPU)")
+
+
 def _on_card(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return True
@@ -72,8 +122,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      q_pos: Optional[torch.Tensor] = None,
                      window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
-    fn = (_decode.decode_attention if _on_card(q)
-          else ref.decode_attention_ref)
+    if _on_card(q):
+        _no_backward("decode_attention (K1)", q, k_cache, v_cache)
+        fn = _decode.decode_attention
+    else:
+        fn = ref.decode_attention_ref
     return fn(q, k_cache, v_cache, lengths, kv_positions=kv_positions,
               q_pos=q_pos, window=window, scale=scale)
 
@@ -84,7 +137,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_positions: Optional[torch.Tensor] = None,
                     window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    fn = _flash.flash_attention if _on_card(q) else ref.flash_attention_ref
+    if _on_card(q):
+        mla = scale is not None or v.shape[-1] != k.shape[-1]
+        if window == 0 and kv_positions is None and not mla:
+            if _wants_grad(q, k, v):
+                return _flash.FlashAttentionFn.apply(q, k, v, causal,
+                                                     q_offset, kv_len)
+        else:
+            _no_backward(f"flash_attention (K2) in "
+                         f"{'MLA' if mla else 'window'} mode", q, k, v)
+        fn = _flash.flash_attention
+    else:
+        fn = ref.flash_attention_ref
     return fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
               kv_positions=kv_positions, window=window, scale=scale)
 
@@ -92,6 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def topk_retrieval(queries: torch.Tensor, corpus: torch.Tensor,
                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_card(queries):
+        _no_backward("topk_retrieval (K3)", queries, corpus)
         return _topk.topk_retrieval(queries, corpus, k)
     return ref.topk_retrieval_ref(queries, corpus, k)
 
@@ -100,6 +165,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
               C: torch.Tensor,
               dA: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_card(x):
+        _no_backward("ssd_chunk (K5)", x, dt, B, C, dA)
         return _ssd.ssd_chunk(x, dt, B, C, dA)
     return ref.ssd_chunk_ref(x, dt, B, C, dA)
 
@@ -108,6 +174,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
                 sw: torch.Tensor,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     if _on_card(x):
+        _no_backward("int8_matmul (K4)", x, w, sx, sw)
         return _int8.int8_matmul(x, w, sx, sw, out_dtype)
     return ref.int8_matmul_ref(x, w, sx, sw, out_dtype)
 
@@ -122,7 +189,13 @@ def mla_launch_counts() -> Dict[str, int]:
             if hasattr(k.module, "mla_launches")}
 
 
+def backward_launch_counts() -> Dict[str, int]:
+    return {k.name: k.module.launches.count for k in BACKWARD_KERNELS}
+
+
 def reset_launch_counts() -> None:
+    for k in BACKWARD_KERNELS:
+        k.module.launches.reset()
     for k in KERNELS:
         k.module.launches.reset()
         if hasattr(k.module, "mla_launches"):

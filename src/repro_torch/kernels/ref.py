@@ -12,6 +12,10 @@ K1 and K2 also take an MLA mode (DeepSeek's multi-head latent attention,
 ``repro/models/mla.py``): values narrower than the keys (e_v < e) and an
 explicit ``scale`` (MLA scales by 1/sqrt(qk_head_dim), not by
 1/sqrt(e)); the plain versions take both.
+
+K2's backward (training; no window or MLA mode) has its plain version
+here too: :func:`flash_attention_lse_ref` gives the forward's LSE and
+:func:`flash_attention_bwd_ref` the gradients from it.
 """
 from __future__ import annotations
 
@@ -116,6 +120,75 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len is not None:
         mask = mask & valid_slots(sk, kv_len, q.device)[:, None]
     return masked_attention(q, k, v, mask, scale)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            q_offset: int = 0,
+                            kv_len: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` and each query row's log-sum-exp of its
+    visible scaled scores, f32 (b, h, sq) in natural-log units (-inf for a
+    row with no visible key): what K2 writes for its backward."""
+    out = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len)
+    scores = _masked_scores(q, k, causal, q_offset, kv_len)
+    b, n, g, sq, _ = scores.shape
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, n * g, sq)
+    return out, lse
+
+
+def _masked_scores(q, k, causal, q_offset, kv_len):
+    """f32 scores (b, n, g, sq, sk) scaled by 1/sqrt(e), -inf where the
+    key is masked (causal at ``q_offset``, or at or past ``kv_len``)."""
+    from repro_torch.models.layers import _gqa_scores
+    sq, sk = q.shape[1], k.shape[1]
+    scores = _gqa_scores(q, k) / math.sqrt(q.shape[-1])
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None]
+    mask = kpos < (sk if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    return scores.masked_fill(~mask, float("-inf"))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool, q_offset: int = 0,
+                            kv_len: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients of K2 (no window or MLA mode), step by step as K2's
+    backward computes them, in f32, cast to the inputs' dtype: q, o, do
+    (b, sq, h, e), k, v (b, sk, n, e), lse (b, h, sq) f32 from the forward
+    -> (dq, dk, dv)::
+
+        P  = exp(S·scale - lse)        (0 where masked)
+        dV = Pᵀ·dO,   dP = dO·Vᵀ,   dS = P ⊙ (dP - rowsum(dO ⊙ O))
+        dQ = dS·K·scale,   dK = dSᵀ·Q·scale
+
+    dK and dV summed over the g query heads of each kv head."""
+    b, sq, h, e = q.shape
+    sk, n = k.shape[1], k.shape[2]
+    g = h // n
+    scale = 1.0 / math.sqrt(e)
+    f = [t.float() for t in (q, k, v, o, do)]
+    qf, kf, vf, of, dof = f
+    s = _masked_scores(q, k, causal, q_offset, kv_len)     # (b,n,g,sq,sk)
+    ls = lse.float().reshape(b, n, g, sq, 1)
+    p = torch.exp(s - ls)              # masked: exp(-inf) = 0
+    p = torch.where(torch.isnan(p), 0.0, p)   # a row with no visible key
+    do5 = dof.reshape(b, sq, n, g, e)
+    q5 = qf.reshape(b, sq, n, g, e)
+    dv = torch.einsum("bngqk,bqnge->bkne", p, do5)
+    dp = torch.einsum("bqnge,bkne->bngqk", do5, vf)
+    delta = (dof * of).sum(-1).reshape(b, sq, n, g).permute(0, 2, 3, 1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bngqk,bkne->bqnge", ds, kf).reshape(b, sq, h, e)
+    dk = torch.einsum("bngqk,bqnge->bkne", ds, q5)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
 
 
 def topk_retrieval_ref(queries: torch.Tensor, corpus: torch.Tensor,

@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path vlm
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path deepseek-engine
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path xlstm-engine
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-parts
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
 where no kernel runs on a device.)
@@ -31,6 +33,14 @@ xlstm-engine`` serve the zamba2 engine's requests through
 ``ServingEngine`` with deepseek-v2-236b (every width, depth cut to
 ``DEEPSEEK_LAYERS``: the first-k dense block and three MoE blocks) or
 xlstm-350m (whole) in its place (``engine_model(dev, path)``).
+``--path train`` trains qwen1.5-0.5b at its published width (bf16, remat
+"dots", AdamW) on one fixed 8 x 256 batch of ``launch.train.
+synthetic_data``: a run is ``TRAIN_PROFILE_STEPS`` steps
+(``train_runner``), so its kernel table counts K2's backward too.
+``--path train-parts`` is not profiled: for each remat policy ("dots",
+"none", "full") it times the parts of a step of the same model on the
+same batch, each alone between two syncs (``train_step_parts``), and
+prints them as JSON.
 Each runs once unprofiled (warm-up: allocator, cuBLAS handles, kernel
 build) and once under ``torch.profiler``, and prints as JSON: the wall
 time of the profiled run, the device's busy share of it (the union of
@@ -85,9 +95,14 @@ ENGINE_ARCHS = {"zamba2-engine": "zamba2-1.2b",
                 "deepseek-engine": "deepseek-v2-236b",
                 "xlstm-engine": "xlstm-350m"}
 DEEPSEEK_LAYERS = 4
+# the train path: qwen1.5-0.5b whole (the default arch of
+# repro/launch/train.py), one fixed 8 x 256 batch, lr 1e-3
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PROFILE_STEPS = \
+    "qwen1.5-0.5b", 8, 256, 3
 
 # the port's own kernels, by their __global__ names
-PORT_KERNELS = tuple(s for k in ops.KERNELS for s in k.symbols)
+PORT_KERNELS = tuple(s for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)
+                     for s in k.symbols)
 GEMM = ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")   # cuBLAS
 TOP = 12
 
@@ -303,6 +318,92 @@ def cross_runner(path: str, dev: torch.device) -> Callable[[], dict]:
     return run
 
 
+def train_runner(dev: torch.device) -> Callable[[], dict]:
+    """-> run(): TRAIN_PROFILE_STEPS AdamW steps of qwen1.5-0.5b (full
+    width, or reduced on the CPU) on one fixed batch; the model and its
+    state persist across runs."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.training import AdamWConfig, TrainConfig
+    from repro_torch.training import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    if dev.type != "cuda":
+        cfg = reduced(cfg)
+    init, step = make_train_step(cfg, TrainConfig(
+        optimizer=AdamWConfig(lr=1e-3, warmup_steps=1)), dev)
+    state = list(init(18))
+    batch = next(synthetic_data(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=18,
+                                device=dev))
+
+    def run():
+        t0 = time.monotonic()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            state[0], state[1], metrics = step(state[0], state[1], batch)
+        loss = float(metrics["loss"])       # waits for the device
+        return {"wall_s": time.monotonic() - t0, "loss": loss,
+                "steps": TRAIN_PROFILE_STEPS,
+                "tokens": TRAIN_PROFILE_STEPS * TRAIN_BATCH * TRAIN_SEQ}
+    return run
+
+
+def train_step_parts(dev: torch.device, remat: str) -> dict:
+    """The loss forward, forward + backward and AdamW update of one step
+    of ``train_runner``'s model with ``remat``, each timed alone between
+    two syncs (host clock, ms, median of 3 after 2 warm-up steps), and the
+    whole step; the peak memory of those 3 rounds."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.models import lm
+    from repro_torch.training import (AdamWConfig, TrainConfig, adamw_update,
+                                      make_train_step)
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = get_config(TRAIN_ARCH)
+    if dev.type != "cuda":
+        cfg = reduced(cfg)
+    cfg = dataclasses.replace(cfg, remat=remat)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    init, step = make_train_step(cfg, tcfg, dev)
+    params, state = init(18)
+    batch = next(synthetic_data(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=18,
+                                device=dev))
+
+    def loss(p, b):
+        return lm.loss_fn(p, cfg, b)
+
+    def synced(fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+    for _ in range(2):
+        params, state, _ = step(params, state, batch)
+    times: Dict[str, List[float]] = collections.defaultdict(list)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        times["forward_ms"].append(synced(lambda: loss(params, batch))[1])
+        (_, grads), t = synced(lambda: value_and_grad(loss, params, batch))
+        times["forward_backward_ms"].append(t)
+        times["adamw_ms"].append(synced(lambda: adamw_update(
+            grads, state, params, tcfg.optimizer))[1])
+        del grads
+        times["step_ms"].append(synced(lambda: step(params, state,
+                                                    batch))[1])
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    return out
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def serve_once(stage_fns) -> dict:
     """One isolated W2 query; -> its wall time and per-stage latencies."""
     traces = sample_traces("finqabench", 1, seed=1)
@@ -326,16 +427,28 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None)
     ap.add_argument("--path", choices=("w2", *ENGINE_ARCHS, "zamba2-long",
-                                       *CROSS_ARCHS), default="w2")
+                                       *CROSS_ARCHS, "train", "train-parts"),
+                    default="w2")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.path == "train-parts":
+        out = {"device": (torch.cuda.get_device_name(0)
+                          if dev.type == "cuda" else "cpu"),
+               "path": args.path, "arch": TRAIN_ARCH,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+        for remat in ("dots", "none", "full"):
+            out[remat] = train_step_parts(dev, remat)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        print(json.dumps(out, indent=1))
+        return out
     if args.path in CROSS_ARCHS:
         run_once = cross_runner(args.path, dev)
     elif args.path in ENGINE_ARCHS:
         run_once = engine_runner(dev, args.path)
     else:
-        run_once = {"w2": w2_runner, "zamba2-long": long_runner}[
-            args.path](dev)
+        run_once = {"w2": w2_runner, "zamba2-long": long_runner,
+                    "train": train_runner}[args.path](dev)
     warm = run_once()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()

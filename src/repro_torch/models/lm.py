@@ -36,16 +36,25 @@ layers of its kind in layer order.  Each layer reads and writes its slice
 in place, and ``idx`` is a host int so no step waits on the device to
 learn it.
 
-The training loss (and so the MTP head's use) is not ported: a later
-slice (ROADMAP).
+Training: ``init_params(..., trainable=True)`` makes every floating leaf
+require a gradient (the reference differentiates every leaf; serving
+keeps them frozen, so nothing there builds a graph).  ``apply``'s
+"train" mode runs with grad mode as the caller has it, each block under
+the reference's remat policy (:func:`_remat`); "prefill" and "decode"
+run under ``torch.no_grad``.  :func:`loss_fn` is the reference's: the
+next-token :func:`cross_entropy`, the MoE aux loss, and for deepseek-v3
+0.3 x its MTP head's CE.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -210,6 +219,14 @@ class XlstmLM(_LM):
 LM = Union[DenseLM, HybridLM, VlmLM, AudioLM, MoeLM, XlstmLM]
 
 
+def set_trainable(model: nn.Module, trainable: bool) -> nn.Module:
+    """Every floating leaf requires a gradient (``trainable``) or none
+    does; -> the model."""
+    for p in model.parameters():
+        p.requires_grad_(trainable and p.is_floating_point())
+    return model
+
+
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
@@ -273,9 +290,15 @@ def init_moe_block(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device) -> LM:
+                device: torch.device, trainable: bool = False) -> LM:
     """Random weights with the JAX package's distributions, drawn on
-    ``device`` from ``generator``."""
+    ``device`` from ``generator``; ``trainable``: every leaf requires a
+    gradient."""
+    return set_trainable(_init_params(cfg, generator, device), trainable)
+
+
+def _init_params(cfg: ModelConfig, generator: torch.Generator,
+                 device: torch.device) -> LM:
     require_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     d, V = cfg.d_model, cfg.vocab_size
@@ -410,6 +433,42 @@ def _layer(tree: Optional[Mapping[str, torch.Tensor]],
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    with no batch dimension (``mm``, ``addmm``, and ``bmm`` over a batch
+    of 1, which ``einsum`` issues for such a product), recompute the rest
+    (K2 included)."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig, mode: str):
+    """The reference's ``_remat`` with ``torch.utils.checkpoint`` around a
+    block: in "train" mode with grad on, "none" keeps everything, "dots"
+    keeps only :func:`_save_dots`' outputs, any other policy ("full")
+    recomputes the block in the backward.  Remat changes memory, never
+    values."""
+    if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_dots)
+               if cfg.remat == "dots" else ckpt.noop_context_fn)
+
+    def run(*args, **kwargs):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context, **kwargs)
+    return run
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
@@ -476,14 +535,14 @@ def _attend(p, cfg: ModelConfig, x, *, positions, causal, cache, cache_idx,
 def _run_dense_stack(blocks: nn.ModuleList, cfg: ModelConfig,
                      x: torch.Tensor, positions: torch.Tensor,
                      caches: Optional[Mapping[str, torch.Tensor]],
-                     cache_idx: Optional[int], *,
-                     causal: bool = True) -> torch.Tensor:
+                     cache_idx: Optional[int],
+                     mode: str = "train") -> torch.Tensor:
     """Loop over the layer modules; layer ``i`` uses ``caches[...][i]``,
     written in place."""
+    block = _remat(dense_block, cfg, mode)
     for i, blk in enumerate(blocks):
-        x, _, _ = dense_block(blk, cfg, x, positions=positions,
-                              causal=causal, cache=_layer(caches, i),
-                              cache_idx=cache_idx)
+        x, _, _ = block(blk, cfg, x, positions=positions,
+                        cache=_layer(caches, i), cache_idx=cache_idx)
     return x
 
 
@@ -504,10 +563,14 @@ def _mamba_layer(blk: MambaBlock, cfg: ModelConfig, x: torch.Tensor,
 
 def _run_hybrid(params: HybridLM, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Cache],
-                cache_idx: Optional[int]) -> torch.Tensor:
+                cache_idx: Optional[int], mode: str) -> torch.Tensor:
     """Groups of ``attn_every`` Mamba2 layers, each followed by the shared
     block with its own cache slice (a ring's window is its slot count),
-    then the ``num_layers % attn_every`` tail layers."""
+    then the ``num_layers % attn_every`` tail layers.  Remat wraps each
+    Mamba2 layer and each pass of the shared block (the reference also
+    wraps each group around its layers': memory only)."""
+    mamba_layer = _remat(_mamba_layer, cfg, mode)
+    block = _remat(dense_block, cfg, mode)
     every = cfg.ssm.attn_every
     n_groups = cfg.num_layers // every
     states = None if cache is None else cache["mamba"]
@@ -515,12 +578,12 @@ def _run_hybrid(params: HybridLM, cfg: ModelConfig, x: torch.Tensor,
     W = attn["k"].shape[2] if attn is not None and "pos" in attn else 0
     for g in range(n_groups):
         for i in range(g * every, (g + 1) * every):
-            x = _mamba_layer(params.blocks[i], cfg, x, states, i)
-        x, _, _ = dense_block(params.shared, cfg, x, positions=positions,
-                              cache=_layer(attn, g), cache_idx=cache_idx,
-                              window=W)
+            x = mamba_layer(params.blocks[i], cfg, x, states, i)
+        x, _, _ = block(params.shared, cfg, x, positions=positions,
+                        cache=_layer(attn, g), cache_idx=cache_idx,
+                        window=W)
     for i in range(n_groups * every, cfg.num_layers):
-        x = _mamba_layer(params.blocks[i], cfg, x, states, i)
+        x = mamba_layer(params.blocks[i], cfg, x, states, i)
     return x
 
 
@@ -541,21 +604,28 @@ def _run_vlm(params: VlmLM, cfg: ModelConfig, batch, x, positions, cache,
                              device=x.device)
     xkv = None if cache is None or mode == "prefill" else cache["cross_kv"]
     per_group = cfg.vlm.cross_attn_every - 1
-    crosses = []
-    for gi, grp in enumerate(params.groups):
+
+    def group(grp, x, gi):
+        """One cross block, then the group's self blocks; -> (x, cross)."""
         x, _, nx = dense_block(
             grp.cross, cfg, x, positions=positions,
             cache=None if cache is None else _layer(cache["cross_layers"],
                                                     gi),
             cache_idx=cache_idx, cross_kv=vision,
             cross_cache=_layer(xkv, gi))
-        crosses.append(nx)
         for j, blk in enumerate(grp.selfs):
             x, _, _ = dense_block(
                 blk, cfg, x, positions=positions,
                 cache=None if cache is None else _layer(
                     cache["self_layers"], gi * per_group + j),
                 cache_idx=cache_idx)
+        return x, nx
+
+    group = _remat(group, cfg, mode)
+    crosses = []
+    for gi, grp in enumerate(params.groups):
+        x, nx = group(grp, x, gi)
+        crosses.append(nx)
     if new_cache is not None and mode == "prefill":
         new_cache["cross_kv"] = _stack_cross(crosses)
     return x
@@ -567,19 +637,20 @@ def _run_audio(params: AudioLM, cfg: ModelConfig, batch, x, positions,
     if frames is None and cache is None:
         frames = torch.zeros((x.shape[0], cfg.encdec.source_positions,
                               cfg.d_model), dtype=x.dtype, device=x.device)
+    block = _remat(dense_block, cfg, mode)
     memory = None
     if frames is not None:          # the encoder: train, or prefill
         enc_pos = torch.arange(frames.shape[1], device=x.device)
         mem = frames
         for blk in params.encoder.blocks:
-            mem, _, _ = dense_block(blk, cfg, mem, positions=enc_pos,
-                                    causal=False)
+            mem, _, _ = block(blk, cfg, mem, positions=enc_pos,
+                              causal=False)
         memory = L.rmsnorm(params.encoder.final_norm, mem, cfg.norm_eps)
     xkv = (cache["cross_kv"] if cache is not None and mode == "decode"
            else None)
     crosses = []
     for i, blk in enumerate(params.blocks):
-        x, _, nx = dense_block(
+        x, _, nx = block(
             blk, cfg, x, positions=positions,
             cache=None if cache is None else _layer(cache["layers"], i),
             cache_idx=cache_idx, cross_kv=memory, cross_cache=_layer(xkv, i))
@@ -613,17 +684,18 @@ def moe_block(p: MoEBlock, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def _run_moe(params: MoeLM, cfg: ModelConfig, x, positions, cache,
-             cache_idx) -> Tuple[torch.Tensor, torch.Tensor]:
+             cache_idx, mode) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense blocks, then the MoE blocks, layer ``i`` on slice ``i``
     of the latent cache; the capacity factor is 2.0 below 4096 tokens a
     call, else 1.25 (the reference's)."""
     cap = 2.0 if x.shape[0] * x.shape[1] < 4096 else 1.25
     lat = None if cache is None else cache["layers"]
     aux = torch.zeros((), device=x.device)
+    block = _remat(moe_block, cfg, mode)
     for i, blk in enumerate([*params.dense_blocks, *params.moe_blocks]):
-        x, a = moe_block(blk, cfg, x, positions=positions,
-                         cache=_layer(lat, i), cache_idx=cache_idx,
-                         capacity_factor=cap)
+        x, a = block(blk, cfg, x, positions=positions,
+                     cache=_layer(lat, i), cache_idx=cache_idx,
+                     capacity_factor=cap)
         aux = aux + a
     return x, aux
 
@@ -658,7 +730,6 @@ def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
     return (x @ params.embed.T) * (x.shape[-1] ** -0.5)
 
 
-@torch.no_grad()
 def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
           mode: str = "train", cache: Optional[Cache] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
@@ -666,10 +737,18 @@ def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
     layers' summed load-balance loss (0 for the other families).
 
     batch: {"tokens": (b, s)} [+ "vision_embeds" (b, T, vision_dim) /
-    "audio_frames" (b, T, d)].  mode: "train" (no cache) | "prefill"
-    (fills the cache; a vlm/audio prefill stores the source's cross k/v)
-    | "decode" (a vlm/audio decode reads them)."""
+    "audio_frames" (b, T, d)].  mode: "train" (no cache; a graph where the
+    parameters require a gradient and grad mode is on) | "prefill" (fills
+    the cache; a vlm/audio prefill stores the source's cross k/v) |
+    "decode" (a vlm/audio decode reads them); both under no_grad."""
     require_ported(cfg)
+    serving = mode != "train"
+    with torch.no_grad() if serving else contextlib.nullcontext():
+        return _apply(params, cfg, batch, mode, cache)
+
+
+def _apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any],
+           mode: str, cache: Optional[Cache]):
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = F.embedding(tokens, params.embed)
@@ -679,11 +758,12 @@ def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
     aux = torch.zeros((), device=tokens.device)
     fam = cfg.family
     if fam == "moe":
-        x, aux = _run_moe(params, cfg, x, positions, cache, cache_idx)
+        x, aux = _run_moe(params, cfg, x, positions, cache, cache_idx,
+                          mode)
     elif fam == "ssm":
         x = _run_xlstm(params, cfg, x, cache)
     elif fam == "hybrid":
-        x = _run_hybrid(params, cfg, x, positions, cache, cache_idx)
+        x = _run_hybrid(params, cfg, x, positions, cache, cache_idx, mode)
     elif fam == "vlm":
         x = _run_vlm(params, cfg, batch, x, positions, cache, cache_idx,
                      mode, new_cache)
@@ -693,7 +773,49 @@ def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
     else:
         x = _run_dense_stack(params.blocks, cfg, x, positions,
                              None if cache is None else cache["layers"],
-                             cache_idx)
+                             cache_idx, mode)
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = _logits(params, x)
     return logits, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's CE: in f32, the row max's gradient stopped, the mean
+    over every (b, s) position.  The gold logit is gathered (the reference
+    contracts a one-hot, the same value)."""
+    logits = logits.float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    gold = shifted.gather(-1, labels[..., None].long())[..., 0] + m[..., 0]
+    return (lse - gold).mean()
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Mapping[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (loss, {"ce", "aux"[, "mtp_ce"]}): the next-token CE plus the
+    MoE aux loss, and with deepseek-v3's MTP head (``cfg.mtp_depth`` and
+    ``params.mtp``) 0.3 x the CE of its prediction of the token after
+    next, as ``repro/models/lm.py::loss_fn``."""
+    logits, aux, _ = apply(params, cfg, batch, mode="train")
+    labels = batch["labels"]
+    ce = cross_entropy(logits[:, :-1], labels[:, 1:])
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    mtp = getattr(params, "mtp", None)
+    if cfg.mtp_depth and mtp is not None:
+        tokens = batch["tokens"]
+        h = F.embedding(tokens[:, 1:], params.embed)
+        h0 = L.rmsnorm(mtp.ln, F.embedding(tokens[:, :-1], params.embed),
+                       cfg.norm_eps)
+        h = torch.cat([h0, h], dim=-1) @ mtp.proj
+        pos = torch.arange(h.shape[1], device=h.device)
+        h, _ = moe_block(mtp.block, cfg, h, positions=pos)
+        mtp_ce = cross_entropy(_logits(params, h)[:, :-1], labels[:, 2:])
+        loss = loss + 0.3 * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics

@@ -82,7 +82,6 @@ def _heads(t: torch.Tensor, rep: int) -> torch.Tensor:
     return t.repeat_interleave(rep, dim=3)
 
 
-@torch.no_grad()
 def mamba2_forward(p: Params, x: torch.Tensor, s: SSMConfig, *,
                    init_state: Optional[State] = None,
                    return_state: bool = False

@@ -90,7 +90,6 @@ def _mlstm_chunk(q, k, v, ig, fg, state):
     return h, (C1, n1, m_end)
 
 
-@torch.no_grad()
 def mlstm_forward(p: Params, x: torch.Tensor, s: SSMConfig, *,
                   init_state: Optional[State] = None,
                   return_state: bool = False
@@ -165,7 +164,6 @@ def init_slstm(d: int, dtype: torch.dtype, generator: torch.Generator,
             "w_out": dense((d, d))}
 
 
-@torch.no_grad()
 def slstm_forward(p: Params, x: torch.Tensor, *,
                   init_state: Optional[State] = None,
                   return_state: bool = False

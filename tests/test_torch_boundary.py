@@ -1,7 +1,9 @@
 """Boundary and drift guards of the PyTorch port.
 
-1. No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX
-   or anything of the JAX package ``repro`` (by import statement or by a
+1. No module of ``src/repro_torch/`` (``training/``, ``checkpoint/`` and
+   ``launch/train.py`` included), no torch example
+   (``examples/*_torch.py``) and not ``chip_smoke.py`` imports JAX or
+   anything of the JAX package ``repro`` (by import statement or by a
    module name in a string, as ``configs.get_family`` uses).
 2. Each control-plane module the port copies equals the JAX package's with
    ``repro.`` renamed ``repro_torch.``, so a fix to one cannot silently
@@ -36,7 +38,17 @@ def _forbidden(module: str) -> bool:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py"))
+            + [ROOT / "chip_smoke.py"])
+
+
+def test_port_files_reach_the_training_modules():
+    rel = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"training/optimizer.py", "training/train_loop.py",
+            "training/grad_compression.py", "checkpoint/checkpoint.py",
+            "launch/train.py"} <= rel
+    assert ROOT / "examples" / "train_lm_torch.py" in _port_files()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -118,10 +130,41 @@ def test_kernel_table_names_real_sources_and_tpu_kernels(kernel):
     assert kernel.module.launches.count >= 0
 
 
+def _backward_table():
+    from repro_torch.kernels import ops
+    return ops.BACKWARD_KERNELS
+
+
+@pytest.mark.parametrize("kernel", _backward_table(), ids=lambda k: k.name)
+def test_backward_kernel_table_names_real_sources_and_the_autodiff_replaced(
+        kernel):
+    """Each row of ``ops.BACKWARD_KERNELS`` points at its CUDA source, at
+    every ``__global__`` function in it, at the ``KERNELS`` row whose
+    gradient it computes, at the JAX function whose XLA autodiff it
+    replaces (the JAX package has no backward Pallas kernel), and at a
+    wrapper module with a launch counter of its own."""
+    import re
+    from repro_torch.kernels import ops
+    src = (ROOT / kernel.source).read_text()
+    globals_ = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        src))
+    assert globals_ == set(kernel.symbols)
+    forward = {k.name: k for k in ops.KERNELS}[kernel.differentiates]
+    path, line = kernel.autodiff_of.rsplit(":", 1)
+    jax_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert re.match(r"def \w+\(", jax_line), jax_line
+    assert callable(getattr(kernel.module, kernel.name))
+    assert kernel.module.launches is not forward.module.launches
+    assert kernel.name not in {k.name for k in ops.KERNELS}
+
+
 def test_launch_counts_cover_the_kernel_table():
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     assert ops.launch_counts() == {k.name: 0 for k in ops.KERNELS}
+    assert ops.backward_launch_counts() == {
+        k.name: 0 for k in ops.BACKWARD_KERNELS}
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():

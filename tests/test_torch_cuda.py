@@ -777,3 +777,170 @@ def test_mla_mode_refuses_other_widths(cuda):
     with pytest.raises(ValueError, match="first 512"):
         k2.flash_attention(_dev(rng, (1, 8, 8, 576), "bfloat16", cuda), k,
                            v, scale=MLA_SCALE)
+
+
+# -- K2's backward and training ------------------------------------------------
+
+# b, sq, h, sk, n, e, causal, q_offset, kv_len: the sweep of chip_smoke's
+# check_backward (the training shape; g 2/4/8 at e 128; whisper's encoder
+# and a cross shape, non-causal; kv_len < sk with a ragged sq; e 16)
+BWD_CASES = [(8, 256, 16, 256, 16, 64, True, 0, None),
+             (2, 256, 8, 256, 4, 128, True, 0, None),
+             (2, 256, 16, 256, 4, 128, True, 0, None),
+             (2, 256, 32, 256, 4, 128, True, 0, None),
+             (1, 1500, 20, 1500, 20, 64, False, 0, None),
+             (1, 16, 64, 1601, 8, 128, False, 0, None),
+             (2, 77, 8, 128, 4, 64, True, 24, 101),
+             (2, 40, 4, 40, 2, 16, True, 0, None)]
+
+
+def _bwd_tol(dtype, want):
+    """K2's backward against its plain version (both compute in f32 from
+    the same inputs and LSE): atol a share of the gradient's largest
+    |value| (2e-5 in f32: sums in another order; 2e-3 in bf16) and rtol
+    1e-4 / 1e-2 (bf16: the gradient's one rounding, 2^-8 to 2^-7 of the
+    value)."""
+    a, r = (2e-3, 1e-2) if dtype == "bfloat16" else (2e-5, 1e-4)
+    return dict(atol=a * float(np.abs(want).max()), rtol=r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,sk,n,e,causal,q_offset,kv_len", BWD_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_backward_kernel_matches_plain(cuda, b, sq, h, sk, n, e,
+                                             causal, q_offset, kv_len,
+                                             dtype):
+    """K2's LSE (atol 1e-4, rtol 1e-5) and its backward from it, against
+    the plain versions."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import flash_attention_bwd as kb
+    rng = np.random.default_rng(60)
+    q, do = (_dev(rng, (b, sq, h, e), dtype, cuda) for _ in range(2))
+    k, v = (_dev(rng, (b, sk, n, e), dtype, cuda) for _ in range(2))
+    mask = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    o, lse = k2.flash_attention(q, k, v, return_lse=True, **mask)
+    want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, **mask)
+    got = kb.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **mask)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(o), _f32(want_o), **_tol(dtype))
+    np.testing.assert_allclose(_f32(lse), _f32(want_lse), atol=1e-4,
+                               rtol=1e-5)
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == DTYPES[dtype] and g_.shape == w.shape
+        assert float(g_.float().abs().max()) > 0, name
+        np.testing.assert_allclose(_f32(g_), _f32(w),
+                                   **_bwd_tol(dtype, _f32(w)), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_backward_of_fully_masked_rows_is_zero(cuda):
+    """kv_len 0: every row sees no key; the LSE is -inf and every
+    gradient 0, as the plain version's."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import flash_attention_bwd as kb
+    rng = np.random.default_rng(61)
+    q, do = (_dev(rng, (1, 8, 8, 64), "bfloat16", cuda) for _ in range(2))
+    k, v = (_dev(rng, (1, 32, 4, 64), "bfloat16", cuda) for _ in range(2))
+    o, lse = k2.flash_attention(q, k, v, causal=False, kv_len=0,
+                                return_lse=True)
+    grads = kb.flash_attention_bwd(q, k, v, o, do, lse, causal=False,
+                                   kv_len=0)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(lse).all())
+    assert all(float(t.float().abs().max()) == 0 for t in (o, *grads))
+
+
+@pytest.mark.cuda
+def test_flash_attention_fn_gradients_on_the_card(cuda):
+    """autograd through ops.flash_attention (FlashAttentionFn: K2 and its
+    backward) gives the gradients of the plain forward differentiated by
+    autograd on the card, f32."""
+    from repro_torch.kernels import flash_attention_bwd as kb
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(62)
+    q = _dev(rng, (2, 48, 8, 64), "float32", cuda).requires_grad_()
+    k, v = (_dev(rng, (2, 48, 4, 64), "float32", cuda).requires_grad_()
+            for _ in range(2))
+    do = _dev(rng, (2, 48, 8, 64), "float32", cuda)
+    before = kb.launches.count
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert kb.launches.count == before + 1
+    for g_, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g_), _f32(w),
+                                   **_bwd_tol("float32", _f32(w)))
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_card_matches_cpu(cuda):
+    """One train step of reduced f32 qwen1.5 on the card (K2 and its
+    backward) against the CPU plain path from the same weights: the loss
+    within 1e-4 relative, every gradient within 2e-5 + 1e-4·|want|."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, lm
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    cpu = build_model(cfg, "cpu").init(3, trainable=True)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(63).integers(
+        0, cfg.vocab_size, (2, 48)))
+    out = {}
+    for p in (cpu, gpu):
+        t = toks.to(p.embed.device)
+        out[p.embed.device.type] = value_and_grad(
+            lambda m, b: lm.loss_fn(m, cfg, b), p,
+            {"tokens": t, "labels": t})
+    (lc, _), gc_ = out["cpu"]
+    (lg, _), gg = out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    for name, w in gc_.items():
+        np.testing.assert_allclose(_f32(gg[name]), _f32(w), atol=2e-5,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_on_the_card(cuda):
+    """K1, K3, K4, K5 and K2's window and MLA modes refuse an input that
+    requires a gradient under grad mode (their outputs carry none), naming
+    the kernel; under no_grad the same calls run."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_matmul import quantize_int8
+    rng = np.random.default_rng(64)
+
+    def dev(*shape, grad=True):
+        t = _dev(rng, shape, "float32", cuda)
+        return t.requires_grad_() if grad else t
+    xq, sx = quantize_int8(dev(32, 64, grad=False), axis=1)
+    wq, sw = quantize_int8(dev(64, 32, grad=False), axis=0)
+    calls = {
+        "decode_attention (K1)": lambda: ops.decode_attention(
+            dev(1, 4, 64), dev(1, 32, 2, 64), dev(1, 32, 2, 64),
+            torch.full((1,), 32, dtype=torch.int32, device=cuda)),
+        "flash_attention (K2) in window mode": lambda: ops.flash_attention(
+            dev(1, 8, 4, 64), dev(1, 32, 2, 64), dev(1, 32, 2, 64),
+            q_offset=24, window=16,
+            kv_positions=torch.arange(32, dtype=torch.int32, device=cuda)),
+        "flash_attention (K2) in MLA mode": lambda: ops.flash_attention(
+            dev(1, 8, 4, 192), dev(1, 8, 4, 192), dev(1, 8, 4, 128),
+            scale=192 ** -0.5),
+        "topk_retrieval (K3)": lambda: ops.topk_retrieval(
+            dev(2, 64), dev(128, 64, grad=False), 4),
+        "int8_matmul (K4)": lambda: ops.int8_matmul(
+            xq, wq, sx.requires_grad_(), sw, torch.float32),
+        "ssd_chunk (K5)": lambda: ops.ssd_chunk(
+            dev(1, 1, 16, 4, 16), torch.rand(1, 1, 16, 4, device=cuda),
+            dev(1, 1, 16, 4, 8, grad=False),
+            dev(1, 1, 16, 4, 8, grad=False),
+            -torch.rand(1, 1, 16, 4, device=cuda)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=name.replace(
+                "(", r"\(").replace(")", r"\)") + " has no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

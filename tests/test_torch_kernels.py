@@ -91,6 +91,72 @@ def test_flash_q_offset_kv_len_matches_mha(sq, sk, q_offset, kv_len):
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
 
 
+@pytest.mark.parametrize("sq,sk,h,n,e,causal,q_offset,kv_len", [
+    (16, 16, 4, 4, 16, True, 0, None),      # g = 1
+    (16, 16, 8, 4, 16, True, 0, None),      # g = 2
+    (24, 24, 8, 2, 64, True, 0, None),      # g = 4
+    (16, 16, 8, 2, 64, False, 0, None),
+    (12, 20, 8, 2, 16, False, 0, 17),       # kv_len < sk
+    (5, 16, 4, 1, 16, True, 6, 11),         # a chunk at an offset, g = 4
+    (32, 32, 4, 4, 128, True, 0, None),
+])
+def test_flash_bwd_plain_matches_jax_vjp_of_mha(sq, sk, h, n, e, causal,
+                                                 q_offset, kv_len):
+    """K2's backward in plain form (and the forward's LSE) against
+    ``jax.vjp`` of the reference attention, f32: the LSE within 2e-5, each
+    gradient within 2e-5 + 1e-4·|want| (sums over up to 32 keys and 4
+    query heads of a kv head)."""
+    import jax
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(12)
+    jq, tq = _pair(rng, (2, sq, h, e), "float32")
+    jk, tk = _pair(rng, (2, sk, n, e), "float32")
+    jv, tv = _pair(rng, (2, sk, n, e), "float32")
+    jdo, tdo = _pair(rng, (2, sq, h, e), "float32")
+    valid = None if kv_len is None else jnp.full((2,), kv_len, jnp.int32)
+    want, vjp = jax.vjp(lambda q, k, v: jmha(
+        q, k, v, causal=causal, q_positions=jnp.arange(sq) + q_offset,
+        kv_valid_len=valid), jq, jk, jv)
+    mask = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out, lse = tref.flash_attention_lse_ref(tq, tk, tv, **mask)
+    np.testing.assert_allclose(_f32(out), _f32(want), **_tol("float32"))
+    scores = np.einsum("bqnge,bkne->bngqk",
+                       _f32(tq).reshape(2, sq, n, h // n, e), _f32(tk))
+    scores = scores / np.sqrt(e)
+    kpos = np.arange(sk)
+    vis = kpos[None] < (sk if kv_len is None else kv_len)
+    if causal:
+        vis = vis & (np.arange(sq)[:, None] + q_offset >= kpos[None])
+    m = np.where(vis, scores, -np.inf)
+    mx = m.max(-1, keepdims=True)
+    want_lse = (np.log(np.exp(m - mx).sum(-1)) + mx[..., 0]).reshape(
+        2, h, sq)
+    np.testing.assert_allclose(_f32(lse), want_lse, **_tol("float32"))
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, out, tdo, lse, **mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jdo)):
+        assert g.shape == tuple(w.shape) and g.dtype == torch.float32
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("b,sq,h,kv_len,causal,q_offset,want", [
+    (8, 256, 16, 256, True, 0, (256, 1)),       # training: 512 dQ blocks
+    (2, 256, 32, 256, True, 0, (128, 2)),       # g = 8 at b = 2: 256 -> 512
+    (1, 16, 64, 1601, False, 0, (384, 5)),      # cross: 64 -> 320 blocks
+    (1, 1500, 20, 1500, False, 0, (1536, 1)),   # whisper's encoder
+    (2, 77, 8, 101, True, 24, (128, 1)),        # one split covers 101 keys
+    (1, 8, 8, 0, False, 0, (64, 1)),            # kv_len 0: one empty split
+])
+def test_flash_bwd_plan_splits_dq_only_where_blocks_are_few(
+        b, sq, h, kv_len, causal, q_offset, want):
+    from repro_torch.kernels import flash_attention_bwd as kb
+    chunk, nsplit = kb.plan(b, sq, h, kv_len, causal, q_offset)
+    assert (chunk, nsplit) == want
+    kend = min(kv_len, q_offset + sq) if causal else kv_len
+    assert chunk % kb.TILE == 0 and chunk * nsplit >= kend
+    assert (nsplit - 1) * chunk < max(kend, 1)      # no split is empty
+
+
 # -- K1 decode attention -----------------------------------------------------
 
 @pytest.mark.parametrize("S,h,n,e,bk", [
