@@ -9,7 +9,7 @@ failure ends the run with a non-zero exit code and no result line:
 1. build    — compile the six CUDA libraries, K1-K5 and K2's backward
               (one nvcc per source, in parallel); ptxas' registers,
               shared memory and spills of every kernel, the backward's
-              four included.
+              seven included.
 1b. SASS    — the machine code of the redesigned kernels: K2's bf16
               kernel issues wgmma (HGMMA) and TMA loads (UTMALDG), K3's
               cp.async (LDGSTS), K1's 16-byte global loads (LDG.E.128)
@@ -19,7 +19,9 @@ failure ends the run with a non-zero exit code and no result line:
               (HMMA) and cp.async (LDGSTS), its ssd_decode 16-byte loads
               and stores (LDG.E.128, STG.E.128); K1's and K2's MLA-mode
               kernels cp.async, and their bf16 decode_mla_mma and
-              flash_mla_mma mma.sync (HMMA) fed by ldmatrix (LDSM).
+              flash_mla_mma mma.sync (HMMA) fed by ldmatrix (LDSM);
+              K2's bf16 backward kernels flash_bwd_dkdv_wgmma and
+              flash_bwd_dq_wgmma wgmma (HGMMA) and TMA loads (UTMALDG).
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
@@ -59,8 +61,10 @@ failure ends the run with a non-zero exit code and no result line:
               causal), g in {2, 4, 8} at e 128, whisper's encoder (1500
               x 1500, 20 heads of 64) and a cross shape (16 queries over
               1601 keys, g 8, e 128) non-causal, kv_len < sk with a
-              ragged sq, and e 16; bf16 timed beside
-              ``torch.autograd.grad`` through SDPA (backward only).
+              ragged sq, e 16, and g 3 (63-row query tiles); bf16 (the
+              wgmma kernels) timed beside ``torch.autograd.grad`` through
+              SDPA (backward only), f32 on the CUDA-core kernels; two runs
+              of each bit-equal.
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -122,9 +126,9 @@ failure ends the run with a non-zero exit code and no result line:
               median step time, tokens/s and peak memory; then 8 steps
               with an async checkpoint every 4 and a restart to 12 from
               the step-8 checkpoint, whose losses must match the
-              uninterrupted run's within 2e-2; a step's forward,
-              backward and AdamW update, each between two syncs, under
-              remat "dots", "none" and "full".
+              uninterrupted run's within 2e-2; then 3 more steps under
+              torch.profiler: the device time a step (the union of its
+              kernels) beside the step wall, and K2's backward a launch.
 5. timing   — each kernel, its plain version and the yardstick replayed at
               every shape the isolated W2 query, the zamba2 engine and
               long-context runs, the whisper and vlm runs and the
@@ -667,8 +671,8 @@ def phase_build():
     # in K5's ssd_chunk_mma, 16-byte loads and stores in its ssd_decode;
     # cp.async in K1's and K2's MLA mode (decode_mla, flash_mla), and in
     # their bf16 decode_mla_mma and flash_mla_mma also mma.sync (HMMA) fed
-    # by ldmatrix (LDSM).
-    # Each named kernel must issue each opcode.
+    # by ldmatrix (LDSM); wgmma and TMA loads in K2's bf16 backward
+    # kernels.  Each named kernel must issue each opcode.
     must = {"flash_fwd_wgmma": ("HGMMA", "UTMALDG"),
             "topk_partial": ("LDGSTS",),
             "decode_attn": ("LDG.E.128", "UCGABAR_ARV", "UCGABAR_WAIT"),
@@ -677,7 +681,9 @@ def phase_build():
             "ssd_decode": ("LDG.E.128", "STG.E.128"),
             "decode_mla": ("LDGSTS",), "flash_mla": ("LDGSTS",),
             "flash_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
-            "decode_mla_mma": ("HMMA", "LDSM", "LDGSTS")}
+            "decode_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
+            "flash_bwd_dkdv_wgmma": ("HGMMA", "UTMALDG"),
+            "flash_bwd_dq_wgmma": ("HGMMA", "UTMALDG")}
     for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG",
                                                "LDGSTS", "HMMA", "LDSM")),
                           ("topk_retrieval", ("LDGSTS",)),
@@ -686,7 +692,8 @@ def phase_build():
                                                 "HMMA", "LDSM")),
                           ("int8_matmul", ("IGMMA", "UTMALDG")),
                           ("ssd_chunk", ("HMMA", "LDGSTS", "LDG.E.128",
-                                         "STG.E.128"))):
+                                         "STG.E.128")),
+                          ("flash_attention_bwd", ("HGMMA", "UTMALDG"))):
         counts = _build.sass_counts(name, opcodes)
         say(f"[build] {name} SASS: " + " | ".join(
             f"{fn}: " + ", ".join(f"{c} {op}" for op, c in ops_.items())
@@ -1044,10 +1051,16 @@ def check_mla(g, errs):
 
 def check_backward(g, errs):
     """K2's backward against its plain version from K2's own output and
-    LSE (both held to the plain forward's), bf16 (timed) and f32, at the
-    training shape, g 2/4/8 at e 128, whisper's encoder and a cross shape
-    (non-causal), kv_len < sk with a ragged sq at an offset, and e 16 (the
-    reduced models' width).  No gradient may be all 0."""
+    LSE (both held to the plain forward's), bf16 (the wgmma kernels,
+    timed) and f32 (the CUDA-core kernels), at the training shape, g
+    2/4/8 at e 128, whisper's encoder and a cross shape (non-causal),
+    kv_len < sk with a ragged sq at an offset, e 16 (the reduced models'
+    width) and g 3 (63-row query tiles).  No gradient may be all 0, and
+    two runs must give the same bits."""
+    from repro_torch.kernels import flash_attention_bwd as kb
+    assert kb.kernel_for(torch.bfloat16) == ("flash_bwd_dkdv_wgmma",
+                                             "flash_bwd_dq_wgmma")
+    assert kb.kernel_for(torch.float32) == ("flash_bwd_dkdv", "flash_bwd_dq")
     cases = [("training shape b=8 s=256 h=n=16 e=64 causal",
               (8, 256, 16, 256, 16, 64), {})]
     cases += [(f"g={gq} e=128 b=2 s=256 causal", (2, 256, 4 * gq, 256, 4,
@@ -1059,7 +1072,9 @@ def check_backward(g, errs):
                (1, 16, 64, 1601, 8, 128), dict(causal=False)),
               ("sq=77 at q_offset=24, kv_len=101 < sk=128, g=2 e=64",
                (2, 77, 8, 128, 4, 64), dict(q_offset=24, kv_len=101)),
-              ("e=16 b=2 s=40 g=2 causal", (2, 40, 4, 40, 2, 16), {})]
+              ("e=16 b=2 s=40 g=2 causal", (2, 40, 4, 40, 2, 16), {}),
+              ("g=3 sq=50 sk=70 e=64 non-causal", (2, 50, 12, 70, 4, 64),
+               dict(causal=False))]
     for what, shape, kw in cases:
         for dt in (torch.bfloat16, torch.float32):
             c = backward_case(*shape, dt, g, **kw)
@@ -1069,11 +1084,15 @@ def check_backward(g, errs):
                                f"K2 output {what} {dt}")
             lerr = check_close(lse, want_lse, c["fwd_tols"][1],
                                f"K2 LSE {what} {dt}")
-            got = c["kernel"]()
+            got, again = c["kernel"](), c["kernel"]()
             assert all(float(t.float().abs().max()) > 0 for t in got), \
                 f"{what} {dt}: a gradient is all 0"
+            assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                       for a, b in zip(got, again)), \
+                f"{what} {dt}: two runs differ"
             err = check_case(c, f"flash_attention_bwd {what} {dt}")
-            line = (f"[kernels] flash_attention_bwd {what} {str(dt)[6:]}: "
+            line = (f"[kernels] flash_attention_bwd {what} {str(dt)[6:]} "
+                    f"({'/'.join(kb.kernel_for(dt))}, two runs bit-equal): "
                     f"dq/dk/dv max|err| {err:.2e} <= "
                     f"{c['tol'][0]:.0e}·max|want| + {c['tol'][1]:.0e}·|want|;"
                     f" K2 output max|err| {oerr:.2e}, LSE {lerr:.2e}")
@@ -1888,7 +1907,52 @@ def phase_train():
         f"uninterrupted run's {losses[8:]} (max rel diff {rel:.2e} <= "
         f"{RESTART_TOL:.0e})")
     _free()
+    prof = profile_train_steps()
+    summary.update(prof)
+    say(f"[train] profiled {prof['profiled_steps']} steps: device time "
+        f"{prof['device_ms_per_step']:.1f} ms a step (the union of its "
+        f"kernels) against a step wall of {summary['step_ms_median']:.1f} "
+        f"ms (the 12-step run's median; "
+        f"{prof['profiled_wall_ms_per_step']:.1f} ms profiled); K2's "
+        f"backward {1e3 * prof['k2_backward_ms_per_launch']:.1f} us a "
+        f"launch ({prof['k2_backward_launches']} launches, its kernels "
+        f"summed), {prof['k2_backward_ms_per_step']:.2f} ms a step")
+    _free()
     return summary, shapes.seen
+
+
+def profile_train_steps():
+    """The train path's device time: ``profile_serve.train_runner``'s
+    steps (the same model, batch and optimizer) once to warm up, then
+    once under torch.profiler: the union of the kernel intervals a step,
+    and the device time of K2's backward kernels per launch of its
+    wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import _union_ms, train_runner
+    run = train_runner(torch.device("cuda"))
+    run()
+    names = {s for k in ops.BACKWARD_KERNELS for s in k.symbols}
+    before = ops.backward_launch_counts()["flash_attention_bwd"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+    launched = ops.backward_launch_counts()["flash_attention_bwd"] - before
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
+    bwd_ms = sum(b - a for a, b, name in spans
+                 if any(s in name for s in names)) / 1e3
+    assert launched > 0 and bwd_ms > 0, (launched, bwd_ms)
+    steps = out["steps"]
+    return dict(profiled_steps=steps,
+                device_ms_per_step=_union_ms([(a, b) for a, b, _ in spans])
+                / steps,
+                profiled_wall_ms_per_step=1e3 * out["wall_s"] / steps,
+                k2_backward_launches=launched,
+                k2_backward_ms_per_launch=bwd_ms / launched,
+                k2_backward_ms_per_step=bwd_ms / steps)
 
 
 def _split_mla(seen):

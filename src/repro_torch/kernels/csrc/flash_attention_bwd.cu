@@ -1,4 +1,5 @@
-// K2's backward — the gradients of GQA flash attention, four kernels.
+// K2's backward — the gradients of GQA flash attention, two routes chosen
+// by input type.
 //
 // The JAX package has no backward Pallas kernel: it differentiates the jnp
 // attention repro/models/layers.py::mha (layers.py:116) with XLA's
@@ -6,34 +7,78 @@
 // gradient, for the forward of flash_attention.cu (flash_fwd_wgmma in
 // bf16, flash_fwd in f32) without window or MLA mode: GQA (h % n == 0),
 // causal or not, query i at position q_offset + i, keys >= kv_len masked,
-// e in {16, 64, 128}, bf16 or f32 inputs, f32 accumulators.
+// e in {16, 64, 128}, f32 accumulators.
 //
 // With P = exp(S·scale - lse) recomputed from the forward's LSE (natural
 // log, f32 (b, h, sq)), scale = 1/sqrt(e):
-//   D  = rowsum(dO ⊙ O)                                 flash_bwd_delta
+//   D  = rowsum(dO ⊙ O)
 //   dV = Pᵀ·dO,  dK = dSᵀ·Q·scale, summed over the g query heads of each kv
-//   head, with dP = dO·Vᵀ and dS = P ⊙ (dP - D)         flash_bwd_dkdv
-//   dQ = dS·K·scale                                     flash_bwd_dq
-//   shares and splits added in a fixed order            flash_bwd_sum
-// Two passes with no float atomics: a dK/dV block owns 64 keys of one
-// query head and walks its query tiles, a dQ block owns 64 query rows and
-// walks a range of key tiles, so S and dP are computed in both (7 products
-// of 64 x 64 tiles where 5 would do).  Where a kv head serves g > 1 query
-// heads, each dK/dV block writes its head's share in f32 and
-// flash_bwd_sum adds the g shares in head order; where the dQ grid would
-// leave the card half idle (few query rows, e.g. 16 queries over 1601
-// keys), the key range is split (kernels/flash_attention_bwd.py::plan)
+//   head, with dP = dO·Vᵀ and dS = P ⊙ (dP - D)
+//   dQ = dS·K·scale
+// Two passes with no float atomics, a dK/dV pass whose blocks own keys and
+// a dQ pass whose blocks own query rows, so S and dP are computed in both;
+// where a pass's blocks would be too few for the card, its range is split
 // and flash_bwd_sum adds the splits' f32 partials in split order.  So
-// every gradient is the same from run to run.
+// every gradient is the same bits from run to run.
 //
 // What bounds it on the H100: at the training shape (b 8, 256 positions,
 // 16 heads of 64, causal) the inputs and outputs are 8 tensors of 4.2 MB
 // (about 10 µs at 3.35 TB/s) and the 5 products about 2.7 GFLOP (2.7 µs
-// on the bf16 tensor cores), so bytes bound it.  This first version runs
-// on the CUDA cores in f32 (tiles staged in shared memory as f32, a
-// 16 x 16 thread grid, each thread a 4 x 4 patch of a 64 x 64 product), so
-// it is bound by its FMAs instead; wgmma and TMA are later work.
+// on the bf16 tensor cores), so bytes bound it; in practice how long a
+// block's chain of tiles takes, and how many SMs the grid keeps busy.
+//
+// bf16: flash_bwd_prep, flash_bwd_dkdv_wgmma, flash_bwd_dq_wgmma (+
+// flash_bwd_sum), every product on the tensor cores by wgmma, in the
+// layout conventions of hopper.cuh and flash_fwd_wgmma's:
+//  * Rows of a query tile are (query position, head of the group), as the
+//    forward's Q box lands them: the g = h/n heads of a kv head share each
+//    64-row tile, so one K/V tile serves all g heads and the dK/dV pass
+//    sums over them inside its accumulators (no per-head shares).
+//  * flash_bwd_prep writes, per row of that packed order, the LSE in base
+//    2, D, and the row's key limit (the keys it sees are those below it:
+//    the causal edge, kv_len, 0 for a padding row), so both passes mask a
+//    key with one compare and read a tile's row data with one bulk copy.
+//  * flash_bwd_dkdv_wgmma: a block (one warpgroup) owns 64 keys of a kv
+//    head, its K and V tiles resident, and walks the query tiles that can
+//    see them (causal: from the first that sees its first key; split into
+//    f32 partials where blocks are few, flash_attention_bwd.py::
+//    wgmma_plan).  Per tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (both operands in
+//    shared memory, K-major), Pᵀ and dSᵀ on the accumulator fragments
+//    (masked before exp2; the exponentials run while dPᵀ is still on the
+//    tensor cores), then dV += Pᵀ·dO and dK += dSᵀ·Q with A from registers
+//    (the fragments packed to bf16 in place, as the forward does with P)
+//    and B MN-major (the transpose bit).  Q, dO and the row data arrive by
+//    TMA and the bulk-copy unit into a ring of 2 (e = 128) or 3 stages.
+//  * flash_bwd_dq_wgmma: a block owns a 64-row query tile, Q and dO
+//    resident, and walks its key split's tiles, K/V by TMA into a ring of
+//    2 stages (3 at e = 16): S = Q·Kᵀ, dP = dO·Vᵀ, P and dS in registers,
+//    dQ += dS·K.  The key range is split where query tiles are few (16
+//    queries over 1601 keys).
+//  * Registers: one warpgroup per block and no producer warp.  At e = 128
+//    the dK and dV accumulators of 64 keys take 2 x 64 f32 a thread and
+//    Sᵀ/dPᵀ 2 x 32 more; Pᵀ and dSᵀ are both formed before either is packed
+//    and the accumulating products issued, so no more than those 192 are
+//    live at once (ptxas' report shows the count and any spill).  Two
+//    warpgroups on 128 keys would keep the same count a thread, and
+//    splitting e into two passes would compute Sᵀ and dPᵀ twice.
+//  * P and dS enter their products as bf16 hi + lo pairs (pack_hilo: the
+//    value rounded, and the remainder rounded; two wgmmas into one
+//    accumulator), about 16 bits, where the plain version keeps them in
+//    f32.  Rounded once, as SDPA's are, dS took dK past the limit the
+//    backward is held to in bf16 (2e-3·max|want| + 1e-2·|want|) at
+//    chip_smoke.py's g 2, e 128 shape on the H100: dS = P ⊙ (dP - D)
+//    holds terms of |dP| ~ sqrt(e) whose sums over a key's queries cancel.
+//    As pairs, each term is off by about 2^-16 of itself, under the
+//    gradients' own rounding.  The pairs cost two more 64-row products a
+//    query tile in the dK/dV pass, one in dQ's.
+// f32: flash_bwd_delta, flash_bwd_dkdv, flash_bwd_dq (+ flash_bwd_sum) on
+// the CUDA cores (wgmma has no full-f32 mode, and TF32 would break the
+// 2e-5 f32 is held to): tiles staged in shared memory as f32, a 16 x 16
+// thread grid, each thread a 4 x 4 patch of a 64 x 64 product; a dK/dV
+// block owns 64 keys of one query head and writes its head's share in f32
+// where g > 1, flash_bwd_sum adding the g shares in head order.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -54,23 +99,21 @@ constexpr size_t smem_bytes() {
 // rows [r0, r0 + 64) of one head of a contiguous (.., rows, heads, E)
 // tensor (src at row 0 of that head; rows row_stride apart) into dst
 // [64][E + 1] as f32, rows at or past nrows as 0
-template <typename T, int E>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int E>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int r0,
                                           int nrows) {
   for (int i = threadIdx.x; i < kB * E; i += kThreads) {
     const int r = i / E, c = i % E;
     dst[r * (E + 1) + c] =
-        r0 + r < nrows ? repro::to_f(src[(long long)(r0 + r) * row_stride + c])
-                       : 0.f;
+        r0 + r < nrows ? src[(long long)(r0 + r) * row_stride + c] : 0.f;
   }
 }
 
 // D = rowsum(dO ⊙ O) in f32, one warp a row of (b, sq, h) -> delta
 // (b, h, sq)
-template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
                 float* __restrict__ delta, long long rows, int sq, int h,
                 int e) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
@@ -78,7 +121,7 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   if (row >= rows) return;  // the whole warp: one row per warp
   float s = 0.f;
   for (int j = lane; j < e; j += 32)
-    s += repro::to_f(o[row * e + j]) * repro::to_f(dout[row * e + j]);
+    s += o[row * e + j] * dout[row * e + j];
   s = repro::warp_sum(s);
   if (lane == 0) {
     const long long hh = row % h, pos = (row / h) % sq,
@@ -128,13 +171,13 @@ __device__ __forceinline__ void two_products(const float* a, const float* b,
 // accumulating dK and dV in registers, and writes them once (0 for keys
 // no query sees): in T into dk/dv (b, sk, n, e) where g = 1, else in f32
 // into head hh's share part_dk/part_dv (b, sk, h, e).
-template <typename T, int E>
+template <int E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, float* __restrict__ part_dk,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, float* __restrict__ part_dk,
                float* __restrict__ part_dv, int sq, int h, int n, int sk,
                int kv_len, int q_offset, int causal, float scale) {
   constexpr int LD = E + 1, NC = E / 16;
@@ -162,18 +205,18 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   // the first query that sees key k0 (causal: q_offset + i >= k0)
   const int i_lo = causal ? max(0, k0 - q_offset) : 0;
   if (k0 < kv_len && i_lo < sq) {
-    const T* kb = k + (long long)bi * sk * krow + kvh * E;
-    const T* vb = v + (long long)bi * sk * krow + kvh * E;
-    load_tile<T, E>(ks, kb, krow, k0, kv_len);
-    load_tile<T, E>(vs, vb, krow, k0, kv_len);
+    const float* kb = k + (long long)bi * sk * krow + kvh * E;
+    const float* vb = v + (long long)bi * sk * krow + kvh * E;
+    load_tile<E>(ks, kb, krow, k0, kv_len);
+    load_tile<E>(vs, vb, krow, k0, kv_len);
     {
-      const T* qb = q + (long long)bi * sq * qrow + hh * E;
-      const T* ob = dout + (long long)bi * sq * qrow + hh * E;
+      const float* qb = q + (long long)bi * sq * qrow + hh * E;
+      const float* ob = dout + (long long)bi * sq * qrow + hh * E;
       const long long lrow = ((long long)bi * h + hh) * sq;
       for (int q0 = i_lo / kB * kB; q0 < sq; q0 += kB) {
         __syncthreads();  // the previous tile's reads are done
-        load_tile<T, E>(qs, qb, qrow, q0, sq);
-        load_tile<T, E>(dos, ob, qrow, q0, sq);
+        load_tile<E>(qs, qb, qrow, q0, sq);
+        load_tile<E>(dos, ob, qrow, q0, sq);
         if (t < kB) {
           const bool in = q0 + t < sq;
           lse_s[t] = in ? lse[lrow + q0 + t] * kLog2e : 0.f;
@@ -232,8 +275,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       const long long at = ((long long)bi * sk + key) * krow + kvh * E;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        dk[at + tx + 16 * c] = repro::from_f<T>(acc_dk[x][c] * scale);
-        dv[at + tx + 16 * c] = repro::from_f<T>(acc_dv[x][c]);
+        dk[at + tx + 16 * c] = acc_dk[x][c] * scale;
+        dv[at + tx + 16 * c] = acc_dv[x][c];
       }
     } else {
       const long long at = ((long long)bi * sk + key) * qrow + hh * E;
@@ -251,13 +294,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 // can see, accumulating dQ in registers; writes it in T into dq (b, sq, h,
 // e) when there is one split, else in f32 into the split's partial
 // part_dq (nsplit, b, sq, h, e).
-template <typename T, int E>
+template <int E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, float* __restrict__ part_dq, int b, int sq,
-             int h, int n, int sk, int kv_len, int q_offset, int causal,
+             float* __restrict__ dq, float* __restrict__ part_dq, int b,
+             int sq, int h, int n, int sk, int kv_len, int q_offset, int causal,
              float scale, int chunk, int nsplit) {
   constexpr int LD = E + 1, NC = E / 16;
   extern __shared__ float sm[];
@@ -276,8 +319,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const long long lrow = ((long long)bi * h + hh) * sq;
   const int xs = (min(kB, sq - q0) + 15) / 16;  // 16-row groups with queries
 
-  load_tile<T, E>(qs, q + (long long)bi * sq * qrow + hh * E, qrow, q0, sq);
-  load_tile<T, E>(dos, dout + (long long)bi * sq * qrow + hh * E, qrow, q0,
+  load_tile<E>(qs, q + (long long)bi * sq * qrow + hh * E, qrow, q0, sq);
+  load_tile<E>(dos, dout + (long long)bi * sq * qrow + hh * E, qrow, q0,
                   sq);
   if (t < kB) {
     const bool in = q0 + t < sq;
@@ -292,12 +335,12 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   // one past the last key a row of this tile sees, within this split
   int kend = min(kv_len, (split + 1) * chunk);
   if (causal) kend = min(kend, q_offset + min(q0 + kB, sq));
-  const T* kb = k + (long long)bi * sk * krow + kvh * E;
-  const T* vb = v + (long long)bi * sk * krow + kvh * E;
+  const float* kb = k + (long long)bi * sk * krow + kvh * E;
+  const float* vb = v + (long long)bi * sk * krow + kvh * E;
   for (int k0 = split * chunk; k0 < kend; k0 += kB) {
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, E>(ks, kb, krow, k0, kv_len);
-    load_tile<T, E>(vs, vb, krow, k0, kv_len);
+    load_tile<E>(ks, kb, krow, k0, kv_len);
+    load_tile<E>(vs, vb, krow, k0, kv_len);
     __syncthreads();
     float s[4][4], dp[4][4];
     two_products<E>(qs, ks, dos, vs, s, dp, ty, tx, xs);
@@ -340,7 +383,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (nsplit == 1)
-        dq[at + tx + 16 * c] = repro::from_f<T>(acc[x][c] * scale);
+        dq[at + tx + 16 * c] = acc[x][c] * scale;
       else
         part_dq[split * (long long)b * sq * qrow + at + tx + 16 * c] =
             acc[x][c] * scale;
@@ -380,7 +423,7 @@ cudaError_t sum_parts(const float* part, void* out, long long rows,
   return cudaGetLastError();
 }
 
-template <typename T, int E>
+template <int E>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
            float* delta, float* part_kv, float* part_q, int b, int sq, int h,
@@ -389,73 +432,652 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   constexpr size_t smem = smem_bytes<E>();
   // once per instantiation (a thread-safe static), not on every launch
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      flash_bwd_dkdv<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   static const cudaError_t attr_q = cudaFuncSetAttribute(
-      flash_bwd_dq<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr_kv != cudaSuccess) return attr_kv;
   if (attr_q != cudaSuccess) return attr_q;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
   const long long rows = (long long)b * sq * h;
-  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), dot, delta, rows, sq, h, E);
+  flash_bwd_delta<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const float*>(o), dot, delta, rows, sq, h, E);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale = 1.f / sqrtf((float)E);
   const int g = h / n;
   const long long kv_part = (long long)b * sk * h * E;  // one share array
-  flash_bwd_dkdv<T, E><<<dim3((sk + kB - 1) / kB, h, b), kThreads, smem,
-                         stream>>>(qt, kt, vt, dot, lse, delta,
-                                   static_cast<T*>(dk), static_cast<T*>(dv),
-                                   part_kv, g > 1 ? part_kv + kv_part : nullptr,
-                                   sq, h, n, sk, kv_len, q_offset, causal,
-                                   scale);
+  flash_bwd_dkdv<E><<<dim3((sk + kB - 1) / kB, h, b), kThreads, smem,
+                      stream>>>(qt, kt, vt, dot, lse, delta,
+                                static_cast<float*>(dk),
+                                static_cast<float*>(dv), part_kv,
+                                g > 1 ? part_kv + kv_part : nullptr, sq, h,
+                                n, sk, kv_len, q_offset, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (g > 1) {  // dk, dv row (b·sk + key, kvh) = sum of shares kvh·g + j
     const long long kv_rows = (long long)b * sk * n;
-    err = sum_parts<T>(part_kv, dk, kv_rows, n, h, g, g, E, E, stream);
+    err = sum_parts<float>(part_kv, dk, kv_rows, n, h, g, g, E, E, stream);
     if (err != cudaSuccess) return err;
-    err = sum_parts<T>(part_kv + kv_part, dv, kv_rows, n, h, g, g, E, E,
-                       stream);
+    err = sum_parts<float>(part_kv + kv_part, dv, kv_rows, n, h, g, g, E,
+                           E, stream);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq<T, E><<<dim3((sq + kB - 1) / kB * nsplit, h, b), kThreads,
-                       smem, stream>>>(qt, kt, vt, dot, lse, delta,
-                                       static_cast<T*>(dq), part_q, b, sq, h,
-                                       n, sk, kv_len, q_offset, causal, scale,
-                                       chunk, nsplit);
+  flash_bwd_dq<E><<<dim3((sq + kB - 1) / kB * nsplit, h, b), kThreads,
+                    smem, stream>>>(qt, kt, vt, dot, lse, delta,
+                                    static_cast<float*>(dq), part_q, b, sq,
+                                    h, n, sk, kv_len, q_offset, causal,
+                                    scale, chunk, nsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   // dq row r (of the b·sq·h rows) = the sum over splits s of part_q[s]'s
-  return sum_parts<T>(part_q, dq, rows, 1, 1, 0, nsplit, rows * E, E,
+  return sum_parts<float>(part_q, dq, rows, 1, 1, 0, nsplit, rows * E, E,
                       stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma, tiles by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 128;  // one warpgroup
+
+// One row of a query tile in the packed order, written by flash_bwd_prep:
+// the forward's LSE times log2(e), D, and the row's key limit (it sees the
+// keys below `lim`; 0 for a row past the last query or the tile's rows).
+struct __align__(16) RowInfo {
+  float lse2;
+  float d;
+  int lim;
+  int pad;
+};
+
+// A 64 x E bf16 tile in shared memory, as TMA writes it (hopper.cuh's
+// layout convention): kAtoms atoms of 64 rows x kSw bytes
+template <int E>
+struct Swz {
+  static constexpr int kAtom = E < 64 ? E : 64;  // elements per swizzle row
+  static constexpr int kSw = 2 * kAtom;          // swizzle bytes: 32 or 128
+  static constexpr int kAtoms = E / kAtom;
+  static constexpr uint64_t kLayout =
+      kSw == 128 ? repro::kSwizzle128 : repro::kSwizzle32;
+  static constexpr int kBytes = kB * E * 2;
+  static_assert(kSw == 32 || kSw == 128, "e must be 16, 64 or 128");
+};
+
+// A pass's shared memory: two resident tiles, then `Stages` pairs of
+// streamed ones, the streamed tiles' row data, an mbarrier per stage and
+// one for the resident pair
+template <int E, int Stages>
+struct WTile : Swz<E> {
+  static constexpr int kStages = Stages;
+  static constexpr int kInfo = kB * (int)sizeof(RowInfo);
+  static constexpr int kAlign = 1024;            // the 128-byte swizzle period
+  static constexpr size_t kSmem =
+      kAlign + (size_t)Swz<E>::kBytes * 2 * (1 + kStages) +
+      (size_t)kInfo * kStages + 8 * (kStages + 1);
+};
+
+// the dK/dV pass streams 3 stages (2 at e = 128, whose ring holds 2 x 32
+// KB); the dQ pass 2 where e >= 64, so that its smaller blocks (122
+// registers a thread at e = 64) fit 4 to an SM
+template <int E>
+using DkdvTile = WTile<E, (E == 128 ? 2 : 3)>;
+template <int E>
+using DqTile = WTile<E, (E == 16 ? 3 : 2)>;
+
+// descriptor of the k16 step kk of a K-major 64 x E tile (E contiguous)
+template <int E>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  using TL = Swz<E>;
+  const int a = kk * 16 / TL::kAtom, off = (kk * 16 % TL::kAtom) * 2;
+  return repro::wgmma_desc(tile + a * kB * TL::kSw + off, 16, 8 * TL::kSw,
+                           TL::kLayout);
+}
+
+// descriptor of rows [16kk, 16kk + 16) of a 64 x E tile read MN-major: its
+// rows are the product's K axis, its E columns the N axis
+template <int E>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  using TL = Swz<E>;
+  return repro::wgmma_desc(tile + kk * 16 * TL::kSw, kB * TL::kSw,
+                           8 * TL::kSw, TL::kLayout);
+}
+
+// D (64 x 64) = A·Bᵀ over E, both 64 x E tiles K-major
+template <int E>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < E / 16; ++kk)
+    repro::wgmma_m64n64k16_ss(d, kmajor<E>(a, kk), kmajor<E>(b, kk), kk > 0);
+}
+
+// D (64 x E) += A·B, A (64 x 64) the bf16 fragments `a` of four k16 steps,
+// B a 64 x E tile read MN-major
+template <int E>
+__device__ __forceinline__ void product_rs(float (&d)[E / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) repro::wgmma_m64nNk16_rs(d, a[kk],
+                                                          mnmajor<E>(b, kk));
+}
+
+// a 64 x 64 accumulator as two sets of bf16 A fragments of four k16 steps
+// (the accumulator layout is the A-fragment layout): hi, the values
+// rounded, and lo, what hi leaves out, rounded; a product taken with both
+// and summed keeps about 16 bits of each value
+__device__ __forceinline__ void pack_hilo(const float (&x)[32],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][r] = repro::pack_bf16(a - __low2float(h), b - __high2float(h));
+    }
+}
+
+// zero rows [rows, 64) of each 64 x E tile at `tiles` (count of them,
+// kBytes apart): a query tile's TMA box fills only its rows (g ∤ 64), and
+// the rest must read as 0 where it is a product's K axis
+template <int E>
+__device__ __forceinline__ void zero_tail(uint8_t* tiles, int count,
+                                          int rows) {
+  using TL = Swz<E>;
+  const int per_atom = (kB - rows) * TL::kSw / 16;  // 16-byte chunks
+  const int total = count * TL::kAtoms * per_atom;
+  for (int i = threadIdx.x; i < total; i += kWG) {
+    const int atom = i / per_atom, c = i % per_atom;
+    reinterpret_cast<uint4*>(tiles + atom * kB * TL::kSw +
+                             rows * TL::kSw)[c] = make_uint4(0, 0, 0, 0);
+  }
+  repro::fence_proxy_async();
+}
+
+// One packed row per E/8 lanes, 16 bytes of O and of dO a lane: row R of
+// query tile mt of (b, kv head) is query position mt·per_tile + R/g of
+// head kvh·g + R%g.  info (b, n, mtiles, 64).
+template <int E>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, RowInfo* __restrict__ info,
+               long long rows, int sq, int h, int n, int per_tile,
+               int mtiles, int kv_len, int q_offset, int causal) {
+  constexpr int kLanes = E / 8;
+  const long long row =
+      (long long)blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int part = threadIdx.x % kLanes;
+  const int g = h / n, r = (int)(row % kB);
+  const long long tile = row / kB;
+  const int mt = (int)(tile % mtiles), kvh = (int)(tile / mtiles % n);
+  const long long bi = tile / ((long long)mtiles * n);
+  const int pos = mt * per_tile + r / g, head = kvh * g + r % g;
+  const bool valid = row < rows && r < per_tile * g && pos < sq;
+  float s = 0.f;
+  if (valid) {
+    const long long at = ((bi * sq + pos) * h + head) * E + 8 * part;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(a2[j]), y = __bfloat1622float2(b2[j]);
+      s += x.x * y.x + x.y * y.y;
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && part == 0) {
+    RowInfo ri{0.f, 0.f, 0, 0};
+    if (valid) {
+      ri.lse2 = lse[(bi * h + head) * sq + pos] * kLog2e;
+      ri.d = s;
+      ri.lim = causal ? min(kv_len, q_offset + pos + 1) : kv_len;
+    }
+    info[row] = ri;
+  }
+}
+
+// Block (64 keys x split, kv head, b): keys [k0, k0 + 64) of kv head
+// blockIdx.y, over the query tiles of its split of those that can see one
+// of them; writes dK (scaled) and dV in bf16 into dk/dv (b, sk, n, e) when
+// there is one split, else in f32 into the split's partials part_kv (2,
+// nsplit, b, sk, n, e).
+template <int E>
+__global__ void __launch_bounds__(kWG, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const RowInfo* __restrict__ info,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv,
+                     float* __restrict__ part_kv, int b, int h, int n,
+                     int sk, int kv_len, int q_offset, int causal,
+                     int per_tile, int mtiles, int nsplit) {
+  using TL = DkdvTile<E>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((TL::kAlign - (repro::smem_u32(smem_raw) &
+                                             (TL::kAlign - 1))) &
+                              (TL::kAlign - 1));
+  // K, V resident; stage s: Q, dO
+  auto q_tile = [&](int s) { return base + TL::kBytes * (2 + 2 * s); };
+  auto o_tile = [&](int s) { return base + TL::kBytes * (3 + 2 * s); };
+  RowInfo* infos =
+      reinterpret_cast<RowInfo*>(base + TL::kBytes * 2 * (1 + TL::kStages));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(infos + kB * TL::kStages);
+  uint64_t* kvbar = bars + TL::kStages;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int split = blockIdx.x % nsplit, k0 = blockIdx.x / nsplit * kB;
+  const int kvh = blockIdx.y, bi = blockIdx.z, g = h / n;
+  const int rows = per_tile * g;
+  // the query tiles that can see one of the keys (causal: from the one
+  // holding position k0 - q_offset), this split's share of them
+  const int vis_lo = causal ? max(0, k0 - q_offset) / per_tile : 0;
+  const int per = (max(0, mtiles - vis_lo) + nsplit - 1) / nsplit;
+  const int m_lo = vis_lo + split * per;
+  const int ntiles =
+      k0 < kv_len ? max(0, min(mtiles, m_lo + per) - m_lo) : 0;
+  const RowInfo* info_b = info + ((long long)bi * n + kvh) * mtiles * kB;
+
+  auto load_q = [&](int j) {  // one thread: tile m_lo + j into its stage
+    const int s = j % TL::kStages, mt = m_lo + j;
+    repro::mbar_arrive_expect_tx(&bars[s], 2 * rows * E * 2 + TL::kInfo);
+#pragma unroll
+    for (int a = 0; a < TL::kAtoms; ++a) {
+      repro::tma_load_4d(q_tile(s) + a * kB * TL::kSw, &qmap, &bars[s],
+                         a * TL::kAtom, kvh * g, mt * per_tile, bi);
+      repro::tma_load_4d(o_tile(s) + a * kB * TL::kSw, &omap, &bars[s],
+                         a * TL::kAtom, kvh * g, mt * per_tile, bi);
+    }
+    repro::bulk_load(infos + s * kB, info_b + (long long)mt * kB, TL::kInfo,
+                     &bars[s]);
+  };
+  if (t == 0) {
+    for (int s = 0; s <= TL::kStages; ++s) repro::mbar_init(&bars[s], 1);
+    repro::mbar_init_fence();
+  }
+  if (rows < kB) zero_tail<E>(q_tile(0), 2 * TL::kStages, rows);
+  __syncthreads();
+  if (t == 0 && ntiles > 0) {
+    repro::mbar_arrive_expect_tx(kvbar, 2 * TL::kBytes);
+#pragma unroll
+    for (int a = 0; a < TL::kAtoms; ++a) {
+      repro::tma_load_4d(base + a * kB * TL::kSw, &kmap, kvbar,
+                         a * TL::kAtom, kvh, k0, bi);
+      repro::tma_load_4d(base + TL::kBytes + a * kB * TL::kSw, &vmap, kvbar,
+                         a * TL::kAtom, kvh, k0, bi);
+    }
+    for (int j = 0; j < min(TL::kStages, ntiles); ++j) load_q(j);
+  }
+
+  // this thread's keys (the fragment rows: warp w holds 16w + lane/4 and
+  // + 8) and, in each Sᵀ/dPᵀ fragment, query rows 8c + 2(lane & 3) + jj
+  // in register 4c + 2i + jj
+  const int key0 = k0 + warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  const float scale_log2 = kLog2e / sqrtf((float)E);
+  const uint32_t k_addr = repro::smem_u32(base);
+  const uint32_t v_addr = k_addr + TL::kBytes;
+  float acc_dk[E / 2], acc_dv[E / 2];
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  if (ntiles > 0) repro::mbar_wait(kvbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % TL::kStages;
+    repro::mbar_wait(&bars[s], (j / TL::kStages) & 1);
+    const uint32_t q_addr = repro::smem_u32(q_tile(s));
+    const uint32_t o_addr = repro::smem_u32(o_tile(s));
+    const RowInfo* ri = infos + s * kB;
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    repro::wgmma_fence();
+    product_ss<E>(st, k_addr, q_addr);    // Sᵀ = K·Qᵀ
+    repro::wgmma_commit();
+    product_ss<E>(dpt, v_addr, o_addr);   // dPᵀ = V·dOᵀ
+    repro::wgmma_commit();
+    repro::wgmma_wait<1>();
+    repro::fence_regs(st);
+    // Pᵀ, masked before exp2, while dPᵀ is on the tensor cores
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const RowInfo r = ri[8 * c + col0 + jj];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * c + 2 * i + jj;
+          st[x] = key0 + 8 * i < r.lim ? exp2f(st[x] * scale_log2 - r.lse2)
+                                       : 0.f;
+        }
+      }
+    repro::wgmma_wait<0>();
+    repro::fence_regs(dpt);
+    // dSᵀ = Pᵀ ⊙ (dPᵀ - D)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float d = ri[8 * c + col0 + jj].d;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * c + 2 * i + jj;
+          dpt[x] = st[x] * (dpt[x] - d);
+        }
+      }
+    uint32_t p_hi[4][4], p_lo[4][4], s_hi[4][4], s_lo[4][4];
+    pack_hilo(st, p_hi, p_lo);
+    pack_hilo(dpt, s_hi, s_lo);
+    repro::wgmma_fence();
+    product_rs<E>(acc_dv, p_hi, o_addr);  // dV += Pᵀ·dO
+    product_rs<E>(acc_dv, p_lo, o_addr);
+    product_rs<E>(acc_dk, s_hi, q_addr);  // dK += dSᵀ·Q
+    product_rs<E>(acc_dk, s_lo, q_addr);
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(acc_dv);
+    repro::fence_regs(acc_dk);
+    __syncthreads();  // every read of stage s (wgmma and row data) is done
+    if (t == 0 && j + TL::kStages < ntiles) load_q(j + TL::kStages);
+  }
+
+  const float scale = 1.f / sqrtf((float)E);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= sk) continue;
+    const long long row = ((long long)bi * sk + key) * n + kvh;
+    if (nsplit == 1) {
+      __nv_bfloat16* kr = dk + row * E + col0;
+      __nv_bfloat16* vr = dv + row * E + col0;
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c) {
+        const int x = 4 * c + 2 * i;
+        *reinterpret_cast<__nv_bfloat162*>(kr + 8 * c) =
+            __floats2bfloat162_rn(acc_dk[x] * scale, acc_dk[x + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vr + 8 * c) =
+            __floats2bfloat162_rn(acc_dv[x], acc_dv[x + 1]);
+      }
+    } else {
+      const long long part = (long long)nsplit * b * sk * n * E;
+      float* kr = part_kv + ((long long)split * b * sk * n + row) * E + col0;
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c) {
+        const int x = 4 * c + 2 * i;
+        *reinterpret_cast<float2*>(kr + 8 * c) =
+            make_float2(acc_dk[x] * scale, acc_dk[x + 1] * scale);
+        *reinterpret_cast<float2*>(kr + part + 8 * c) =
+            make_float2(acc_dv[x], acc_dv[x + 1]);
+      }
+    }
+  }
+}
+
+// Block (query tile x split, kv head, b): the 64 packed rows of query
+// tile mt (the last tiles first: under a causal mask they see the most
+// keys) over the key tiles of split `split` ([split·chunk, +chunk)) that
+// they can see; writes dQ (scaled) in bf16 into dq (b, sq, h, e) when
+// there is one split, else in f32 into the split's partial part_q
+// (nsplit, b, sq, h, e).
+template <int E>
+__global__ void __launch_bounds__(kWG, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const RowInfo* __restrict__ info,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ part_q,
+                   int b, int sq, int h, int n, int kv_len, int q_offset,
+                   int causal, int per_tile, int mtiles, int chunk,
+                   int nsplit) {
+  using TL = DqTile<E>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((TL::kAlign - (repro::smem_u32(smem_raw) &
+                                             (TL::kAlign - 1))) &
+                              (TL::kAlign - 1));
+  // Q, dO resident; stage s: K, V
+  auto k_tile = [&](int s) { return base + TL::kBytes * (2 + 2 * s); };
+  auto v_tile = [&](int s) { return base + TL::kBytes * (3 + 2 * s); };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      base + TL::kBytes * 2 * (1 + TL::kStages) + TL::kInfo * TL::kStages);
+  uint64_t* qbar = bars + TL::kStages;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int split = blockIdx.x % nsplit;
+  const int mt = mtiles - 1 - blockIdx.x / nsplit;
+  const int kvh = blockIdx.y, bi = blockIdx.z, g = h / n;
+  const int rows = per_tile * g, p0 = mt * per_tile;
+  int kend = kv_len;  // one past the last key a row of the tile sees
+  if (causal) kend = min(kend, q_offset + min(p0 + per_tile, sq));
+  const int k_lo = split * chunk, k_hi = min(kend, k_lo + chunk);
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + kB - 1) / kB : 0;
+
+  auto load_kv = [&](int j) {  // one thread: tile j into stage j % kStages
+    const int s = j % TL::kStages, key0 = k_lo + j * kB;
+    repro::mbar_arrive_expect_tx(&bars[s], 2 * TL::kBytes);
+#pragma unroll
+    for (int a = 0; a < TL::kAtoms; ++a) {
+      repro::tma_load_4d(k_tile(s) + a * kB * TL::kSw, &kmap, &bars[s],
+                         a * TL::kAtom, kvh, key0, bi);
+      repro::tma_load_4d(v_tile(s) + a * kB * TL::kSw, &vmap, &bars[s],
+                         a * TL::kAtom, kvh, key0, bi);
+    }
+  };
+  if (t == 0) {
+    for (int s = 0; s <= TL::kStages; ++s) repro::mbar_init(&bars[s], 1);
+    repro::mbar_init_fence();
+  }
+  if (rows < kB) zero_tail<E>(base, 2, rows);
+  __syncthreads();
+  if (t == 0 && ntiles > 0) {
+    repro::mbar_arrive_expect_tx(qbar, 2 * rows * E * 2);
+#pragma unroll
+    for (int a = 0; a < TL::kAtoms; ++a) {
+      repro::tma_load_4d(base + a * kB * TL::kSw, &qmap, qbar, a * TL::kAtom,
+                         kvh * g, p0, bi);
+      repro::tma_load_4d(base + TL::kBytes + a * kB * TL::kSw, &omap, qbar,
+                         a * TL::kAtom, kvh * g, p0, bi);
+    }
+    for (int j = 0; j < min(TL::kStages, ntiles); ++j) load_kv(j);
+  }
+
+  // this thread's two rows (16w + lane/4 and + 8) and their row data; in
+  // each S/dP fragment, keys 8c + 2(lane & 3) + jj in register 4c + 2i + jj
+  const int r0 = warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  const RowInfo* info_t =
+      info + (((long long)bi * n + kvh) * mtiles + mt) * kB;
+  const RowInfo ri[2] = {info_t[r0], info_t[r0 + 8]};
+  const float scale_log2 = kLog2e / sqrtf((float)E);
+  const uint32_t q_addr = repro::smem_u32(base);
+  const uint32_t o_addr = q_addr + TL::kBytes;
+  float acc[E / 2];
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) acc[i] = 0.f;
+
+  if (ntiles > 0) repro::mbar_wait(qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % TL::kStages;
+    repro::mbar_wait(&bars[s], (j / TL::kStages) & 1);
+    const uint32_t k_addr = repro::smem_u32(k_tile(s));
+    const uint32_t v_addr = repro::smem_u32(v_tile(s));
+    const int key0 = k_lo + j * kB + col0;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    repro::wgmma_fence();
+    product_ss<E>(sc, q_addr, k_addr);    // S = Q·Kᵀ
+    repro::wgmma_commit();
+    product_ss<E>(dp, o_addr, v_addr);    // dP = dO·Vᵀ
+    repro::wgmma_commit();
+    repro::wgmma_wait<1>();
+    repro::fence_regs(sc);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int x = 4 * c + 2 * i + jj;
+          sc[x] = key0 + 8 * c + jj < ri[i].lim
+                      ? exp2f(sc[x] * scale_log2 - ri[i].lse2)
+                      : 0.f;
+        }
+    repro::wgmma_wait<0>();
+    repro::fence_regs(dp);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int x = 4 * c + 2 * i + jj;
+          dp[x] = sc[x] * (dp[x] - ri[i].d);
+        }
+    uint32_t s_hi[4][4], s_lo[4][4];
+    pack_hilo(dp, s_hi, s_lo);
+    repro::wgmma_fence();
+    product_rs<E>(acc, s_hi, k_addr);     // dQ += dS·K
+    product_rs<E>(acc, s_lo, k_addr);
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(acc);
+    __syncthreads();  // every wgmma reading stage s has completed
+    if (t == 0 && j + TL::kStages < ntiles) load_kv(j + TL::kStages);
+  }
+
+  const float scale = 1.f / sqrtf((float)E);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i, pos = p0 + r / g;
+    if (r >= rows || pos >= sq) continue;
+    const long long row = ((long long)bi * sq + pos) * h + kvh * g + r % g;
+    if (nsplit == 1) {
+      __nv_bfloat16* out = dq + row * E + col0;
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * i] * scale,
+                                  acc[4 * c + 2 * i + 1] * scale);
+    } else {
+      float* out = part_q + ((long long)split * b * sq * h + row) * E + col0;
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c)
+        *reinterpret_cast<float2*>(out + 8 * c) = make_float2(
+            acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+    }
+  }
+}
+
+template <int E>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* dq, void* dk,
+                 void* dv, RowInfo* info, float* part_kv, float* part_q,
+                 int b, int sq, int h, int n, int sk, int kv_len,
+                 int q_offset, int causal, int per_tile, int kv_nsplit,
+                 int chunk, int nsplit, cudaStream_t stream) {
+  using TL = DkdvTile<E>;
+  const int g = h / n;
+  if (per_tile < 1 || per_tile * g > kB || kv_nsplit < 1 ||
+      (kv_nsplit > 1 && part_kv == nullptr))
+    return cudaErrorInvalidValue;
+  const int mtiles = (sq + per_tile - 1) / per_tile;
+  const CUtensorMapSwizzle sw =
+      TL::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const long long qs = (long long)h * E, ks = (long long)n * E;
+  CUtensorMap qm, om, km, vm;
+  int err = repro::make_map_4d(&qm, q, {E, h, sq, b}, {1, E, qs, sq * qs},
+                               TL::kAtom, g, per_tile, sw);
+  if (err == 0)
+    err = repro::make_map_4d(&om, dout, {E, h, sq, b}, {1, E, qs, sq * qs},
+                             TL::kAtom, g, per_tile, sw);
+  if (err == 0)
+    err = repro::make_map_4d(&km, k, {E, n, sk, b}, {1, E, ks, sk * ks},
+                             TL::kAtom, 1, kB, sw);
+  if (err == 0)
+    err = repro::make_map_4d(&vm, v, {E, n, sk, b}, {1, E, ks, sk * ks},
+                             TL::kAtom, 1, kB, sw);
+  if (err != 0) return err;
+  // once per instantiation (a thread-safe static), not on every launch
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TL::kSmem);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DqTile<E>::kSmem);
+  if (attr_kv != cudaSuccess) return attr_kv;
+  if (attr_q != cudaSuccess) return attr_q;
+  const long long info_rows = (long long)b * n * mtiles * kB;
+  constexpr int kPrepRows = 256 / (E / 8);  // rows a prep block takes
+  flash_bwd_prep<E><<<(unsigned)((info_rows + kPrepRows - 1) / kPrepRows),
+                      256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, info, info_rows, sq, h,
+      n, per_tile, mtiles, kv_len, q_offset, causal);
+  cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return e2;
+  flash_bwd_dkdv_wgmma<E><<<dim3((sk + kB - 1) / kB * kv_nsplit, n, b), kWG,
+                            TL::kSmem, stream>>>(
+      qm, om, km, vm, info, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), part_kv, b, h, n, sk, kv_len,
+      q_offset, causal, per_tile, mtiles, kv_nsplit);
+  e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return e2;
+  if (kv_nsplit > 1) {  // row (b·sk + key)·n + kvh: the splits in order
+    const long long kv_rows = (long long)b * sk * n;
+    const long long part = kv_nsplit * kv_rows * E;
+    e2 = sum_parts<__nv_bfloat16>(part_kv, dk, kv_rows, 1, 1, 0, kv_nsplit,
+                                  kv_rows * E, E, stream);
+    if (e2 != cudaSuccess) return e2;
+    e2 = sum_parts<__nv_bfloat16>(part_kv + part, dv, kv_rows, 1, 1, 0,
+                                  kv_nsplit, kv_rows * E, E, stream);
+    if (e2 != cudaSuccess) return e2;
+  }
+  constexpr size_t dq_smem = DqTile<E>::kSmem;
+  flash_bwd_dq_wgmma<E><<<dim3(mtiles * nsplit, n, b), kWG, dq_smem,
+                          stream>>>(
+      qm, om, km, vm, info, static_cast<__nv_bfloat16*>(dq), part_q, b, sq,
+      h, n, kv_len, q_offset, causal, per_tile, mtiles, chunk, nsplit);
+  e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || nsplit == 1) return e2;
+  const long long rows = (long long)b * sq * h;
+  return sum_parts<__nv_bfloat16>(part_q, dq, rows, 1, 1, 0, nsplit,
+                                  rows * E, E, stream);
 }
 
 }  // namespace
 
-// q, o, dout, dq (b, sq, h, e), k, v, dk, dv (b, sk, n, e): contiguous, of
-// one dtype (0 f32, 1 bf16); lse (b, h, sq) f32, the forward's
-// natural-log LSE; delta (b, h, sq) f32 scratch.  Query i sits at
-// q_offset + i; keys >= kv_len are masked (their dk, dv are 0); causal
-// masks key j > q_offset + i.  part_kv (2, b, sk, h, e) f32 scratch when
-// h > n (the g query heads' dK and dV shares), part_q (nsplit, b, sq, h,
-// e) f32 scratch when nsplit > 1: dQ's key range is split into nsplit
-// ranges of chunk keys (a multiple of 64; flash_attention_bwd.py::plan).
+// f32, the CUDA-core route.  q, o, dout, dq (b, sq, h, e), k, v, dk, dv
+// (b, sk, n, e): contiguous f32; lse (b, h, sq) f32,
+// the forward's natural-log LSE; delta (b, h, sq) f32 scratch.  Query i
+// sits at q_offset + i; keys >= kv_len are masked (their dk, dv are 0);
+// causal masks key j > q_offset + i.  part_kv (2, b, sk, h, e) f32
+// scratch when h > n (the g query heads' dK and dV shares), part_q
+// (nsplit, b, sq, h, e) f32 scratch when nsplit > 1: dQ's key range is
+// split into nsplit ranges of chunk keys (a multiple of 64;
+// flash_attention_bwd.py::plan).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, void* part_kv, void* part_q, int dtype, int b, int sq,
-    int h, int n, int sk, int e, int kv_len, int q_offset, int causal,
-    int chunk, int nsplit, void* stream) {
-  if (b < 1 || sq < 1 || sk < 1 || n < 1 || h % n != 0 || kv_len < 0 ||
-      kv_len > sk || q_offset < 0 || nsplit < 1 || chunk < 1 ||
-      chunk % kB != 0 || (h > n && part_kv == nullptr) ||
-      (nsplit > 1 && part_q == nullptr) ||
+    void* delta, void* part_kv, void* part_q, int b, int sq, int h, int n,
+    int sk, int e, int kv_len, int q_offset, int causal, int chunk,
+    int nsplit, void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || n < 1 ||
+      h % n != 0 || kv_len < 0 || kv_len > sk || q_offset < 0 ||
+      nsplit < 1 || chunk < 1 || chunk % kB != 0 ||
+      (h > n && part_kv == nullptr) || (nsplit > 1 && part_q == nullptr) ||
       (long long)chunk * nsplit <
           (causal ? min(kv_len, q_offset + sq) : kv_len))
     return cudaErrorInvalidValue;
@@ -464,18 +1086,48 @@ extern "C" int repro_flash_attention_bwd(
   auto dl = static_cast<float*>(delta);
   auto pkv = static_cast<float*>(part_kv);
   auto pq = static_cast<float*>(part_q);
-#define REPRO_BWD(T, E)                                                    \
-  return launch<T, E>(q, k, v, o, dout, ls, dq, dk, dv, dl, pkv, pq, b, sq, \
-                      h, n, sk, kv_len, q_offset, causal, chunk, nsplit, st)
-  if (dtype == repro::kBF16) {
-    if (e == 16) REPRO_BWD(__nv_bfloat16, 16);
-    if (e == 64) REPRO_BWD(__nv_bfloat16, 64);
-    if (e == 128) REPRO_BWD(__nv_bfloat16, 128);
-  } else if (dtype == repro::kF32) {
-    if (e == 16) REPRO_BWD(float, 16);
-    if (e == 64) REPRO_BWD(float, 64);
-    if (e == 128) REPRO_BWD(float, 128);
-  }
+#define REPRO_BWD(E)                                                       \
+  return launch<E>(q, k, v, o, dout, ls, dq, dk, dv, dl, pkv, pq, b, \
+                          sq, h, n, sk, kv_len, q_offset, causal, chunk,   \
+                          nsplit, st)
+  if (e == 16) REPRO_BWD(16);
+  if (e == 64) REPRO_BWD(64);
+  if (e == 128) REPRO_BWD(128);
+#undef REPRO_BWD
+  return cudaErrorInvalidValue;
+}
+
+// bf16, the wgmma route: q, o, dout, dq (b, sq, h, e), k, v, dk, dv (b,
+// sk, n, e) contiguous bf16, 16-byte aligned (TMA); lse as above.  The
+// plan is flash_attention_bwd.py::wgmma_plan's: per_tile query positions
+// (of the g heads) in a 64-row tile, h/n <= 64; the dK/dV pass's query
+// tiles split kv_nsplit ways, dQ's keys in nsplit ranges of chunk (a
+// multiple of 64).  info (b, n, mtiles, 64) RowInfo (16 bytes each)
+// scratch, mtiles = ceil(sq / per_tile); part_kv (2, kv_nsplit, b, sk,
+// n, e) f32 scratch when kv_nsplit > 1, part_q (nsplit, b, sq, h, e) when
+// nsplit > 1.
+extern "C" int repro_flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* info, void* part_kv, void* part_q, int b, int sq, int h, int n,
+    int sk, int e, int kv_len, int q_offset, int causal, int per_tile,
+    int kv_nsplit, int chunk, int nsplit, void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || n < 1 || h % n != 0 || kv_len < 0 ||
+      kv_len > sk || q_offset < 0 || nsplit < 1 || chunk < 1 ||
+      chunk % kB != 0 || (nsplit > 1 && part_q == nullptr) ||
+      (long long)chunk * nsplit <
+          (causal ? min(kv_len, q_offset + sq) : kv_len))
+    return cudaErrorInvalidValue;
+#define REPRO_BWD(E)                                                        \
+  return launch_wgmma<E>(q, k, v, o, dout, static_cast<const float*>(lse),  \
+                         dq, dk, dv, static_cast<RowInfo*>(info),           \
+                         static_cast<float*>(part_kv),                      \
+                         static_cast<float*>(part_q), b, sq, h, n, sk,      \
+                         kv_len, q_offset, causal, per_tile, kv_nsplit,     \
+                         chunk, nsplit, static_cast<cudaStream_t>(stream))
+  if (e == 16) REPRO_BWD(16);
+  if (e == 64) REPRO_BWD(64);
+  if (e == 128) REPRO_BWD(128);
 #undef REPRO_BWD
   return cudaErrorInvalidValue;
 }

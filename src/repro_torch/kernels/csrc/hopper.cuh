@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // shared-memory addresses, mbarriers, TMA tile loads and their tensor maps,
-// wgmma shared-memory descriptors, fences and the few wgmma shapes the
-// kernels issue (bf16 for K2, s8 for K4).
+// bulk copies, wgmma shared-memory descriptors, fences and the few wgmma
+// shapes the kernels issue (bf16 for K2 and its backward, s8 for K4).
 //
 // Layout convention.  A tile (of 16-bit or 8-bit elements) lives in shared
 // memory as TMA writes it with a swizzle of S bytes (S = 32 or 128): rows
@@ -91,6 +91,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes from global `src` into shared memory at `dst`
+// (both 16-byte aligned, `bytes` a multiple of 16) by the bulk-copy unit;
+// completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // descriptor layout types (bits 62-63)
@@ -119,6 +132,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight (groups
+// complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers

@@ -89,8 +89,9 @@ class BackwardKernel:
 BACKWARD_KERNELS = (
     BackwardKernel("flash_attention_bwd", _flash_bwd, "flash_attention",
                    "src/repro/models/layers.py:116",
-                   ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq",
-                    "flash_bwd_sum")),
+                   ("flash_bwd_prep", "flash_bwd_dkdv_wgmma",
+                    "flash_bwd_dq_wgmma", "flash_bwd_delta", "flash_bwd_dkdv",
+                    "flash_bwd_dq", "flash_bwd_sum")),
 )
 
 

@@ -16,12 +16,14 @@ than the plain product), the int8 product exactly equal
 the SSD chunk 2e-4 (f32 outputs from sums of up to 256 products in
 another order).  TF32 is off for the plain versions' products.  bf16
 attention runs the wgmma kernel (``flash_fwd_wgmma``), f32 the CUDA-core
-one.  The window and cross shapes, where every query sees at least 173
-keys, are held tighter in bf16: atol 2e-3, rtol 1e-2.  Over that many
-keys the probabilities' rounding averages out, and what is left is the
-output's rounding, at most one bf16 step (2^-7 of the value), so a key let
-in or left out at a window's edge shows; a narrow window (256 of 4096
-slots) makes such a key weigh 1/256 of the output.
+one, and so does its backward (``flash_bwd_dkdv_wgmma`` and
+``flash_bwd_dq_wgmma`` in bf16).  The window and cross shapes, where
+every query sees at least 173 keys, are held tighter in bf16: atol 2e-3,
+rtol 1e-2.  Over that many keys the probabilities' rounding averages out,
+and what is left is the output's rounding, at most one bf16 step (2^-7
+of the value), so a key let in or left out at a window's edge shows; a
+narrow window (256 of 4096 slots) makes such a key weigh 1/256 of the
+output.
 """
 import pytest
 
@@ -783,7 +785,9 @@ def test_mla_mode_refuses_other_widths(cuda):
 
 # b, sq, h, sk, n, e, causal, q_offset, kv_len: the sweep of chip_smoke's
 # check_backward (the training shape; g 2/4/8 at e 128; whisper's encoder
-# and a cross shape, non-causal; kv_len < sk with a ragged sq; e 16)
+# and a cross shape, non-causal; kv_len < sk with a ragged sq; e 16), and
+# g 3, whose query tiles hold 63 rows (21 positions of 3 heads).  bf16
+# runs the wgmma kernels, f32 the CUDA-core ones.
 BWD_CASES = [(8, 256, 16, 256, 16, 64, True, 0, None),
              (2, 256, 8, 256, 4, 128, True, 0, None),
              (2, 256, 16, 256, 4, 128, True, 0, None),
@@ -791,7 +795,8 @@ BWD_CASES = [(8, 256, 16, 256, 16, 64, True, 0, None),
              (1, 1500, 20, 1500, 20, 64, False, 0, None),
              (1, 16, 64, 1601, 8, 128, False, 0, None),
              (2, 77, 8, 128, 4, 64, True, 24, 101),
-             (2, 40, 4, 40, 2, 16, True, 0, None)]
+             (2, 40, 4, 40, 2, 16, True, 0, None),
+             (2, 50, 12, 70, 4, 64, False, 0, None)]
 
 
 def _bwd_tol(dtype, want):
@@ -831,6 +836,51 @@ def test_flash_backward_kernel_matches_plain(cuda, b, sq, h, sk, n, e,
         assert float(g_.float().abs().max()) > 0, name
         np.testing.assert_allclose(_f32(g_), _f32(w),
                                    **_bwd_tol(dtype, _f32(w)), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,sk,n,e,causal,q_offset,kv_len",
+                         [BWD_CASES[i] for i in (0, 1, 3, 5, 8)])
+def test_flash_backward_bf16_runs_are_bit_equal(cuda, b, sq, h, sk, n, e,
+                                                causal, q_offset, kv_len):
+    """Two bf16 runs of K2's backward (the wgmma kernels) give the same
+    bits: at the training shape, at g 2 and g 8 (the dK/dV pass split
+    into f32 partials added in order), 16 queries over 1601 keys (dQ's
+    keys split 13 ways) and g 3 (63-row query tiles)."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import flash_attention_bwd as kb
+    rng = np.random.default_rng(65)
+    q, do = (_dev(rng, (b, sq, h, e), "bfloat16", cuda) for _ in range(2))
+    k, v = (_dev(rng, (b, sk, n, e), "bfloat16", cuda) for _ in range(2))
+    mask = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    o, lse = k2.flash_attention(q, k, v, return_lse=True, **mask)
+    first = kb.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    second = kb.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert float(a.float().abs().max()) > 0, name
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16)), name
+
+
+@pytest.mark.cuda
+def test_flash_backward_wgmma_kernels_are_in_the_table(cuda):
+    """The bf16 route's kernels are rows of ``ops.BACKWARD_KERNELS``
+    (so chip_smoke's kernel line and the trace's symbol table list them),
+    and the built library shows them issuing wgmma (HGMMA) and TMA loads
+    (UTMALDG), the f32 route's CUDA-core kernels no wgmma."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention_bwd as kb
+    syms = {s for row in ops.BACKWARD_KERNELS for s in row.symbols}
+    wgmma, cores = kb.kernel_for(torch.bfloat16), kb.kernel_for(torch.float32)
+    assert set(wgmma) <= syms and set(cores) <= syms
+    _build.library("flash_attention_bwd", kb._SIG)
+    counts = _build.sass_counts("flash_attention_bwd", ("HGMMA", "UTMALDG"))
+    assert {fn.split("<")[0] for fn in counts} == syms
+    for fn, c in counts.items():
+        if fn.split("<")[0] in wgmma:
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (fn, c)
+        else:
+            assert c["HGMMA"] == 0, (fn, c)
 
 
 @pytest.mark.cuda

@@ -157,6 +157,108 @@ def test_flash_bwd_plan_splits_dq_only_where_blocks_are_few(
     assert (nsplit - 1) * chunk < max(kend, 1)      # no split is empty
 
 
+# the bf16 route's plan at tests/test_torch_cuda.py's BWD_CASES shapes (b,
+# sq, h, sk, n, causal, q_offset, kv_len) -> (per_tile, mtiles, kv_nsplit,
+# chunk, nsplit) and (dK/dV blocks, dQ blocks)
+@pytest.mark.parametrize("b,sq,h,sk,n,causal,q_offset,kv_len,want,blocks", [
+    (8, 256, 16, 256, 16, True, 0, 256, (64, 4, 1, 256, 1), (512, 512)),
+    (2, 256, 8, 256, 4, True, 0, 256, (32, 8, 4, 128, 2), (128, 128)),
+    (2, 256, 16, 256, 4, True, 0, 256, (16, 16, 8, 128, 2), (256, 256)),
+    (2, 256, 32, 256, 4, True, 0, 256, (8, 32, 8, 128, 2), (256, 512)),
+    (1, 1500, 20, 1500, 20, False, 0, 1500, (64, 24, 1, 1536, 1),
+     (480, 480)),
+    (1, 16, 64, 1601, 8, False, 0, 1601, (8, 2, 1, 128, 13), (208, 208)),
+    (2, 77, 8, 128, 4, True, 24, 101, (32, 3, 1, 128, 1), (16, 24)),
+    (2, 40, 4, 40, 2, True, 0, 40, (32, 2, 1, 64, 1), (4, 8)),
+    (2, 50, 12, 70, 4, False, 0, 70, (21, 3, 1, 128, 1), (16, 24)),
+])
+def test_flash_bwd_wgmma_plan_fills_the_card_where_the_shape_allows(
+        b, sq, h, sk, n, causal, q_offset, kv_len, want, blocks):
+    """Each pass of the bf16 route splits its range only while its blocks
+    are under two an SM, and as far as MIN_SPLIT_TILES lets it: the dK/dV
+    pass its query tiles (a block per 64 keys of a kv head), the dQ pass
+    its keys (a block per 64-row query tile of the g heads); no split is
+    empty."""
+    from repro_torch.kernels import flash_attention_bwd as kb
+    p = kb.wgmma_plan(b, sq, h, n, sk, kv_len, causal, q_offset)
+    # grids of flash_bwd_dkdv_wgmma (64 keys x split, n, b) and
+    # flash_bwd_dq_wgmma (query tile x split, n, b)
+    assert tuple(p) == want and (b * n * -(-sk // kb.TILE) * p.kv_nsplit,
+                                 b * n * p.mtiles * p.nsplit) == blocks
+    g = h // n
+    assert p.per_tile == kb.TILE // g and p.per_tile * p.mtiles >= sq
+    kend = min(kv_len, q_offset + sq) if causal else kv_len
+    key_tiles = -(-kend // kb.TILE)
+    assert p.chunk % kb.TILE == 0 and p.chunk * p.nsplit >= kend
+    assert (p.nsplit - 1) * p.chunk < max(kend, 1)
+    # each pass: two blocks an SM within one split, or as many splits as
+    # its tiles allow; and no split more than that needs
+    for base, ns, tiles in ((b * n * -(-kv_len // kb.TILE), p.kv_nsplit,
+                             p.mtiles),
+                            (b * n * p.mtiles, p.nsplit, key_tiles)):
+        assert ns <= max(1, tiles // kb.MIN_SPLIT_TILES)
+        assert base * (ns + 1) > 2 * kb.SMS or \
+            ns == max(1, tiles // kb.MIN_SPLIT_TILES)
+        assert ns == 1 or base * (ns - 1) < 2 * kb.SMS
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("e", [16, 64, 128])
+def test_flash_bwd_routes_bf16_to_wgmma_and_f32_to_the_cuda_cores(
+        dtype, e, monkeypatch):
+    """The backward wrapper's host side, run on CPU tensors against a
+    stand-in library: bf16 at every head dim goes to the wgmma entry
+    point (``flash_bwd_dkdv_wgmma``/``flash_bwd_dq_wgmma``) with
+    ``wgmma_plan``'s launch, f32 to the CUDA-core one with ``plan``'s;
+    each call passes as many arguments as its entry point declares.  A
+    bf16 call packing more than 64 query heads a kv head raises."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention_bwd as kb
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, args))
+                return 0
+            return fn
+
+    monkeypatch.setattr(_build, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "library", lambda *a: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    dt = DTYPES[dtype][1]
+    b, sq, h, sk, n = 1, 16, 64, 1601, 8       # the cross shape: dQ split
+    q, k = torch.zeros(b, sq, h, e, dtype=dt), torch.zeros(b, sk, n, e,
+                                                             dtype=dt)
+    lse = torch.zeros(b, h, sq)
+    dq, dk, dv = kb.flash_attention_bwd(q, k, k, q, q, lse, causal=False)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.dtype == dk.dtype == dt
+    [(name, args)] = calls
+    assert len(args) == len(kb._SIG[name])
+    if dtype == "bfloat16":
+        assert kb.kernel_for(dt) == ("flash_bwd_dkdv_wgmma",
+                                     "flash_bwd_dq_wgmma")
+        assert name == "repro_flash_attention_bwd_wgmma"
+        p = kb.wgmma_plan(b, sq, h, n, sk, sk, False, 0)
+        assert args[12:18] == (b, sq, h, n, sk, e)
+        assert args[-5:-1] == (p.per_tile, p.kv_nsplit, p.chunk, p.nsplit)
+        assert (args[10] is None) == (p.kv_nsplit == 1)
+        assert args[11] is not None and p.nsplit > 1
+        with pytest.raises(ValueError, match="at most 64"):
+            kb.flash_attention_bwd(torch.zeros(1, 4, 128, e, dtype=dt),
+                                   torch.zeros(1, 8, 1, e, dtype=dt),
+                                   torch.zeros(1, 8, 1, e, dtype=dt),
+                                   torch.zeros(1, 4, 128, e, dtype=dt),
+                                   torch.zeros(1, 4, 128, e, dtype=dt),
+                                   torch.zeros(1, 128, 4), causal=True)
+    else:
+        assert kb.kernel_for(dt) == ("flash_bwd_dkdv", "flash_bwd_dq")
+        assert name == "repro_flash_attention_bwd"
+        assert args[12:18] == (b, sq, h, n, sk, e)
+        assert args[-3:-1] == kb.plan(b, sq, h, sk, False, 0)
+
+
 # -- K1 decode attention -----------------------------------------------------
 
 @pytest.mark.parametrize("S,h,n,e,bk", [
