@@ -6,10 +6,10 @@
 Drives ``repro_torch`` (never JAX, never the JAX package) in phases; any
 failure ends the run with a non-zero exit code and no result line:
 
-1. build    — compile the six CUDA libraries, K1-K5 and K2's backward
-              (one nvcc per source, in parallel); ptxas' registers,
-              shared memory and spills of every kernel, the backward's
-              seven included.
+1. build    — compile the seven CUDA libraries, K1-K5, K2's backward
+              and K5's backward (one nvcc per source, in parallel);
+              ptxas' registers, shared memory and spills of every
+              kernel, the backwards' included.
 1b. SASS    — the machine code of the redesigned kernels: K2's bf16
               kernel issues wgmma (HGMMA) and TMA loads (UTMALDG), K3's
               cp.async (LDGSTS), K1's 16-byte global loads (LDG.E.128)
@@ -64,7 +64,17 @@ failure ends the run with a non-zero exit code and no result line:
               ragged sq, e 16, and g 3 (63-row query tiles); bf16 (the
               wgmma kernels) timed beside ``torch.autograd.grad`` through
               SDPA (backward only), f32 on the CUDA-core kernels; two runs
-              of each bit-equal.
+              of each bit-equal.  K5's backward (``ssd_chunk_bwd``, CUDA
+              cores; no SASS check: it uses no tensor core) at zamba2's
+              widths (64 heads, P = N = 64, B and C one group broadcast
+              to every head) for Q in {1, 77, 256} with nc in {1, 2} and
+              at the train shape (b 4, nc 2, Q 256), and a group per head:
+              dx, dB, dC against the plain version
+              (``ref.ssd_chunk_bwd_ref``) at the input type's BWD_TOL,
+              ddt and ddA against the plain version evaluated in f64 at
+              f32's, every gradient finite, two runs bit-equal; bf16
+              timed beside the plain version (no library call computes
+              this function).
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -81,8 +91,10 @@ failure ends the run with a non-zero exit code and no result line:
               qwen1.5, whisper and xlstm on the card against the CPU
               plain path from the same weights (the loss and every
               gradient, none 0 on the card that is not on the CPU), then
-              the losses of 3 AdamW steps; reduced zamba2 and deepseek-v3
-              must raise the no-backward error (K5, K2's MLA mode).
+              the losses of 3 AdamW steps, and the same for a reduced f32
+              zamba2 (7 layers: a group, the shared block, a tail layer;
+              K5's backward once a layer); deepseek-v3 must raise the
+              no-backward error (K2's MLA mode).
 4. serve    — one isolated W2 query with straggler re-dispatch off (every
               stage runs once, so its launch counts are the query's own),
               then a ``--serve --spec-decode`` run of two staggered
@@ -129,12 +141,21 @@ failure ends the run with a non-zero exit code and no result line:
               uninterrupted run's within 2e-2; then 3 more steps under
               torch.profiler: the device time a step (the union of its
               kernels) beside the step wall, and K2's backward a launch.
+   train hybrid — zamba2-1.2b at its published width (38 Mamba2 layers,
+              d 2048, 64 SSD heads of P = N = 64, one group, chunks of
+              256, the shared block after every 6 layers; bf16, remat
+              "dots") the same way on one fixed 4 x 512 batch (two chunks
+              a row): 12 AdamW steps, the loss down by 0.5 or more, a
+              step's backward launches equal to the layer counts (K5's 38,
+              K2's 6), the median step time, tokens/s and peak memory;
+              then 3 profiled steps: the device time a step and K5's
+              backward a launch.
 5. timing   — each kernel, its plain version and the yardstick replayed at
               every shape the isolated W2 query, the zamba2 engine and
               long-context runs, the whisper and vlm runs and the
               deepseek engine gave it, weighted by launches; K1's and K2's
-              MLA mode as rows of their own; K2's backward at the shape
-              the train phase gave it.
+              MLA mode as rows of their own; K2's and K5's backwards at
+              the shapes the train phases gave them.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one GPU, no network.
@@ -572,8 +593,44 @@ def ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g, kernel=None,
     # the scores C·Bᵀ at the inputs' type's peak, the rest on f32 operands
     bnd = bound_ms(k5.bytes_moved(*args), *k5.flops(x, B))
     return dict(kernel=lambda: k5.run(*args, kernel=kernel, splits=splits),
-                plain=lambda: ref.ssd_chunk_ref(*args),
+                plain=lambda: ref.ssd_chunk_ref(*args), args=args,
                 library=None, bound=bnd, tol=SSD_TOL, pair=True)
+
+
+SSD_BWD_NAMES = ("dx", "ddt", "dB", "dC", "ddA")
+
+
+def ssd_backward_case(b, nc, Q, H, P, N, dtype, broadcast, g):
+    """K5's backward at one shape: ``ssd_case``'s inputs (zamba2's
+    decays, B and C one group broadcast to every head or a group each)
+    and f32 cotangents dy, dS.  Held to (``want``): dx, dB and dC to the
+    plain version at the input type's BWD_TOL, ddt and ddA (f32 outputs)
+    to the plain version evaluated in f64 (``f64``) at f32's.  No
+    library call computes this function."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    args = ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g)["args"]
+    dy = rand((b, nc, Q, H, P), torch.float32, g)
+    dS = rand((b, nc, H, N, P), torch.float32, g)
+    full = (*args, dy, dS)
+
+    def plain():
+        return ref.ssd_chunk_bwd_ref(*full)
+
+    def f64():
+        return ref.ssd_chunk_bwd_ref(*(t.double() for t in full))
+
+    def want():
+        p, e = plain(), f64()
+        return tuple(e[i] if n in ("ddt", "ddA") else p[i]
+                     for i, n in enumerate(SSD_BWD_NAMES))
+    f32 = BWD_TOL[torch.float32]
+    bnd = bound_ms(k5b.bytes_moved(*args), *k5b.flops(args[0], args[2]))
+    return dict(kernel=lambda: k5b.ssd_chunk_bwd(*full), plain=plain,
+                want=want, f64=f64, library=None, bound=bnd, pair=True,
+                scaled=True, tols=tuple(f32 if n in ("ddt", "ddA")
+                                        else BWD_TOL[dtype]
+                                        for n in SSD_BWD_NAMES))
 
 
 def int8_case(M, K, N, out_dtype, g):
@@ -597,16 +654,17 @@ def int8_case(M, K, N, out_dtype, g):
 
 def check_case(case, what):
     """The kernel against its plain version (and, where the case has one,
-    against its near-exact version); -> max |err| from the plain version
-    (over both outputs of a pair)."""
-    got, want = case["kernel"](), case["plain"]()
+    against its near-exact version), or against what the case's ``want``
+    gives; -> max |err| (over every output of a pair)."""
+    got, want = case["kernel"](), case.get("want", case["plain"])()
     if "exact" in case:
         check_close(got, case["exact"](), case["exact_tol"],
                     f"{what} against the near-exact version")
     if not case.get("pair"):
         got, want = (got,), (want,)
     if "tols" in case:
-        return max(check_close(a, b, tol, what)
+        check = check_scaled if case.get("scaled") else check_close
+        return max(check(a, b, tol, what)
                    for a, b, tol in zip(got, want, case["tols"]))
     if case.get("scaled"):
         return max(check_scaled(a, b, case["tol"], what)
@@ -943,6 +1001,7 @@ def phase_kernels():
     check_window_and_cross(g, errs)
     check_mla(g, errs)
     check_backward(g, errs)
+    check_ssd_backward(g, errs)
     return errs, k4_time
 
 
@@ -1103,17 +1162,65 @@ def check_backward(g, errs):
             say(line)
 
 
+def check_ssd_backward(g, errs):
+    """K5's backward (``ssd_bwd_tiles`` + ``ssd_bwd_finish``) at zamba2's
+    widths (64 heads, P = N = 64, B and C one group broadcast to every
+    head): Q in {1, 77, 256} with nc in {1, 2}, and the train shape (b 4,
+    nc 2, Q 256), bf16 and f32, and a group per head in f32; bf16 timed.
+    Held as ``ssd_backward_case`` says; the plain version's own distance
+    from the f64 evaluation is printed beside the kernel's.  Every
+    gradient finite, dx, dB and dC not all 0, two runs bit-equal."""
+    both = (torch.bfloat16, torch.float32)
+    cases = [(f"zamba2 Q={Q} nc={nc}", (1, nc, Q, 64, 64, 64, True), both)
+             for Q in (1, 77, 256) for nc in (1, 2)]
+    cases += [("train shape b=4 nc=2 Q=256", (4, 2, 256, 64, 64, 64, True),
+               both),
+              ("a group per head b=2 nc=3 Q=32 H=4 P=16 N=8",
+               (2, 3, 32, 4, 16, 8, False), (torch.float32,))]
+    for what, shape, dtypes in cases:
+        for dt in dtypes:
+            c = ssd_backward_case(*shape[:6], dt, shape[6], g)
+            got, again = c["kernel"](), c["kernel"]()
+            assert all(bool(t.isfinite().all()) for t in got), \
+                f"{what} {dt}: a gradient is not finite"
+            assert all(float(got[i].float().abs().max()) > 0
+                       for i in (0, 2, 3)), f"{what} {dt}: dx/dB/dC all 0"
+            assert all(torch.equal(a.view(torch.uint8), b_.view(torch.uint8))
+                       for a, b_ in zip(got, again)), \
+                f"{what} {dt}: two runs differ"
+            err = check_case(c, f"ssd_chunk_bwd {what} {dt}")
+            exact, plain = c["f64"](), c["plain"]()
+            far = {n: (max_err(got[i], exact[i]), max_err(plain[i],
+                                                          exact[i]))
+                   for i, n in enumerate(SSD_BWD_NAMES) if n in ("ddt",
+                                                                 "ddA")}
+            (a, r), (a32, r32) = BWD_TOL[dt], BWD_TOL[torch.float32]
+            line = (f"[kernels] ssd_chunk_bwd {what} {str(dt)[6:]} (two "
+                    f"runs bit-equal): max|err| {err:.2e} (dx/dB/dC from "
+                    f"the plain version within {a:.0e}·max|want| + "
+                    f"{r:.0e}·|want|, ddt/ddA from f64 within "
+                    f"{a32:.0e}·max|want| + {r32:.0e}·|want|); from f64, "
+                    f"kernel / plain: " + ", ".join(
+                        f"{n} {k:.2e} / {p:.2e}" for n, (k, p) in
+                        far.items()))
+            if dt == torch.bfloat16:
+                errs["ssd_chunk_bwd"] = max(errs["ssd_chunk_bwd"], err)
+                line += " | " + fmt(measure(c))
+            say(line)
+
+
 def check_reduced_training():
     """One train step on the card against the CPU plain path from the same
-    weights, reduced f32 qwen1.5, whisper and xlstm (2 x 64 tokens of
-    ``launch.train.synthetic_data``): the loss within TRAIN_LOSS_TOL and
-    every gradient within TRAIN_TOL (so none is 0 on the card that is not
-    on the CPU), K2's backward launched where the model attends; then the
-    losses of 3 AdamW steps on each device within TRAIN_LOSS_TOL (not the
-    parameters: AdamW divides by sqrt(v), so an element whose gradient is
-    near 0 may move by up to 2·lr on a sign that rounding decides).
-    Reduced zamba2 (a group, so the shared block runs) and deepseek-v3
-    must raise the no-backward error of K5 and of K2's MLA mode."""
+    weights, reduced f32 qwen1.5, whisper, xlstm and zamba2 (7 layers: a
+    group, so the shared block runs, and a tail layer; chunks of 32) on 2
+    x 64 tokens of ``launch.train.synthetic_data``: the loss within
+    TRAIN_LOSS_TOL and every gradient within TRAIN_TOL (so none is 0 on
+    the card that is not on the CPU), K2's backward launched where the
+    model attends, K5's once a Mamba2 layer; then the losses of 3 AdamW
+    steps on each device within TRAIN_LOSS_TOL (not the parameters: AdamW
+    divides by sqrt(v), so an element whose gradient is near 0 may move
+    by up to 2·lr on a sign that rounding decides).  deepseek-v3 must
+    raise the no-backward error of K2's MLA mode."""
     import copy
 
     from repro_torch.configs import get_config, reduced
@@ -1124,8 +1231,9 @@ def check_reduced_training():
                                       make_train_step)
     from repro_torch.training.train_loop import value_and_grad
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
-    for arch in ("qwen1.5-0.5b", "whisper-large-v3", "xlstm-350m"):
-        cfg = reduced(get_config(arch))
+    for arch, layers in (("qwen1.5-0.5b", 2), ("whisper-large-v3", 2),
+                         ("xlstm-350m", 2), ("zamba2-1.2b", 7)):
+        cfg = reduced(get_config(arch), layers=layers)
         init, step = make_train_step(cfg, tcfg, "cpu")   # runs on any device
         cpu, cpu_state = init(18)
         gpu = copy.deepcopy(cpu).to("cuda")
@@ -1138,14 +1246,17 @@ def check_reduced_training():
         ops.reset_launch_counts()
         (lc, _), gc_ = value_and_grad(loss, cpu, batch)
         (lg, _), gg = value_and_grad(loss, gpu, gbatch)
-        bwd = ops.backward_launch_counts()["flash_attention_bwd"]
+        bwd = ops.backward_launch_counts()
         lerr = abs(float(lg) - float(lc)) / abs(float(lc))
         assert lerr <= TRAIN_LOSS_TOL, f"{arch}: loss {lg} vs {lc}"
         gerr = max(check_close(gg[k].cpu(), gc_[k], TRAIN_TOL,
                                f"{arch} gradient {k}") for k in gc_)
         assert all(float(gg[k].abs().max()) > 0 for k in gc_
                    if float(gc_[k].abs().max()) > 0), f"{arch}: a 0 gradient"
-        assert (bwd > 0) == (cfg.family != "ssm"), (arch, bwd)
+        assert (bwd["flash_attention_bwd"] > 0) == (cfg.family != "ssm"), \
+            (arch, bwd)
+        assert bwd["ssd_chunk_bwd"] == (cfg.num_layers if cfg.family
+                                        == "hybrid" else 0), (arch, bwd)
         losses = {}
         for dev, (p, st, b) in (("cpu", (cpu, cpu_state, batch)),
                                 ("cuda", (gpu, gpu_state, gbatch))):
@@ -1158,13 +1269,11 @@ def check_reduced_training():
         say(f"[models] train step {cfg.name} f32 reduced ({cfg.family}), "
             f"card vs CPU plain path: loss rel err {lerr:.2e}, gradients "
             f"({len(gc_)} leaves) max|err| {gerr:.2e} <= "
-            f"{tol_str(TRAIN_TOL)}, K2 backward launches {bwd}; 3 AdamW "
+            f"{tol_str(TRAIN_TOL)}, backward launches {bwd}; 3 AdamW "
             f"steps' losses card {losses['cuda']} cpu {losses['cpu']}")
-    for arch, layers, name in (("zamba2-1.2b", 7, "ssd_chunk (K5)"),
-                               ("deepseek-v3-671b", None,
-                                "flash_attention (K2) in MLA mode")):
-        cfg = (reduced(get_config(arch)) if layers is None
-               else reduced(get_config(arch), layers=layers))
+    for arch, name in (("deepseek-v3-671b",
+                        "flash_attention (K2) in MLA mode"),):
+        cfg = reduced(get_config(arch))
         params = build_model(cfg, "cuda").init(18, trainable=True)
         batch = next(synthetic_data(cfg, 2, 16, seed=18, device="cuda"))
         try:
@@ -1461,6 +1570,10 @@ def _k5_key(x, dt, B, C, dA):
     return (*x.shape, B.shape[-1], x.dtype, B.stride(3) == 0)
 
 
+def _k5b_key(x, dt, B, C, dA, dy, dS):
+    return _k5_key(x, dt, B, C, dA)
+
+
 def _kb_key(q, k, v, o, do, lse, *, causal, q_offset=0, kv_len=None):
     b, sq, h, e = q.shape
     return (b, sq, h, k.shape[1], k.shape[2], e, q.dtype, causal, q_offset,
@@ -1495,6 +1608,7 @@ REPLAY = {
     "ssd_chunk": (_k5_key, lambda key, g: ssd_case(*key, g)),
     "flash_attention_bwd": (_kb_key, lambda key, g: backward_case(
         *key[:7], g, causal=key[7], q_offset=key[8], kv_len=key[9])),
+    "ssd_chunk_bwd": (_k5b_key, lambda key, g: ssd_backward_case(*key, g)),
 }
 
 
@@ -1907,52 +2021,127 @@ def phase_train():
         f"uninterrupted run's {losses[8:]} (max rel diff {rel:.2e} <= "
         f"{RESTART_TOL:.0e})")
     _free()
-    prof = profile_train_steps()
+    prof = profile_train_steps("train")
     summary.update(prof)
-    say(f"[train] profiled {prof['profiled_steps']} steps: device time "
-        f"{prof['device_ms_per_step']:.1f} ms a step (the union of its "
-        f"kernels) against a step wall of {summary['step_ms_median']:.1f} "
-        f"ms (the 12-step run's median; "
-        f"{prof['profiled_wall_ms_per_step']:.1f} ms profiled); K2's "
-        f"backward {1e3 * prof['k2_backward_ms_per_launch']:.1f} us a "
-        f"launch ({prof['k2_backward_launches']} launches, its kernels "
-        f"summed), {prof['k2_backward_ms_per_step']:.2f} ms a step")
+    say_profile("train", summary)
     _free()
     return summary, shapes.seen
 
 
-def profile_train_steps():
-    """The train path's device time: ``profile_serve.train_runner``'s
+def phase_train_hybrid():
+    """zamba2-1.2b at its published width in bf16 with remat "dots" (38
+    Mamba2 layers, d 2048, 64 SSD heads of P = N = 64, one group, chunks
+    of 256, the shared block after every 6 layers), random weights from
+    seed 18, through ``repro_torch.training.train`` on one fixed batch of
+    ``launch.train.synthetic_data`` (4 x 512: two chunks a row, so the
+    state between them carries a gradient): 12 AdamW steps at lr 1e-3,
+    warm-up 1, every step logged, counters at 0 just before and read
+    just after.  A step launches K5's backward once a Mamba2 layer and
+    K2's once a pass of the shared block.  Then 3 profiled steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (HYBRID_ARCH, HYBRID_BATCH,
+                                                  HYBRID_SEQ)
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.training import AdamWConfig, TrainConfig, train
+    _free()
+    cfg = get_config(HYBRID_ARCH)
+    s = cfg.ssm
+    assert (cfg.num_layers, cfg.d_model, s.expand * cfg.d_model // s.head_dim,
+            s.head_dim, s.state_size, s.ngroups, s.chunk_size, s.attn_every,
+            cfg.dtype, cfg.remat) == (38, 2048, 64, 64, 64, 1, 256, 6,
+                                      "bfloat16", "dots"), cfg
+    passes = cfg.num_layers // s.attn_every       # of the shared block
+    dev = torch.device("cuda")
+    batch = next(synthetic_data(cfg, HYBRID_BATCH, HYBRID_SEQ, seed=18,
+                                device=dev))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                     # just before the main path
+    with ShapeLog() as shapes:
+        params, state, hist = train(cfg, itertools.repeat(batch),
+                                    steps=TRAIN_STEPS, tcfg=tcfg, seed=18,
+                                    log_every=1, device=dev)
+    counts = ops.launch_counts()                  # just after
+    bwd = ops.backward_launch_counts()
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, state
+    losses = [h["loss"] for h in hist]
+    step_s = statistics.median(b["wall"] - a["wall"]
+                               for a, b in zip(hist[1:], hist[2:]))
+    summary = dict(model=cfg.name, params_b=n_params / 1e9,
+                   batch=HYBRID_BATCH, seq=HYBRID_SEQ, steps=TRAIN_STEPS,
+                   losses=losses, step_ms_median=1e3 * step_s,
+                   tokens_per_s=HYBRID_BATCH * HYBRID_SEQ / step_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=counts, bwd_launches=bwd,
+                   k5_forward_per_step=counts["ssd_chunk"] / TRAIN_STEPS,
+                   k5_backward_per_step=bwd["ssd_chunk_bwd"] / TRAIN_STEPS,
+                   k2_backward_per_step=(bwd["flash_attention_bwd"]
+                                         / TRAIN_STEPS))
+    say(f"[train hybrid] {json.dumps(summary)}")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] <= losses[0] - TRAIN_DROP, losses
+    assert bwd["ssd_chunk_bwd"] == cfg.num_layers * TRAIN_STEPS, bwd
+    assert bwd["flash_attention_bwd"] == passes * TRAIN_STEPS, bwd
+    _free()
+    prof = profile_train_steps("train-hybrid")
+    summary.update(prof)
+    say_profile("train hybrid", summary)
+    _free()
+    return summary, shapes.seen
+
+
+def say_profile(label, summary):
+    b = summary["backward"]
+    say(f"[{label}] profiled {summary['profiled_steps']} steps: device "
+        f"time {summary['device_ms_per_step']:.1f} ms a step (the union of "
+        f"its kernels) against a step wall of "
+        f"{summary['step_ms_median']:.1f} ms (the 12-step run's median; "
+        f"{summary['profiled_wall_ms_per_step']:.1f} ms profiled, busy "
+        f"{100 * summary['busy_share']:.1f}%); " + "; ".join(
+            f"{name} {1e3 * v['ms_per_launch']:.1f} us a launch "
+            f"({v['launches']} launches, its kernels summed), "
+            f"{v['ms_per_step']:.2f} ms a step" for name, v in b.items()))
+
+
+def profile_train_steps(path):
+    """A train path's device time: ``profile_serve.train_runner(path)``'s
     steps (the same model, batch and optimizer) once to warm up, then
     once under torch.profiler: the union of the kernel intervals a step,
-    and the device time of K2's backward kernels per launch of its
-    wrapper."""
+    its share of the profiled wall, and each backward kernel's device
+    time per launch of its wrapper (those that ran)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import _union_ms, train_runner
-    run = train_runner(torch.device("cuda"))
+    run = train_runner(torch.device("cuda"), path)
     run()
-    names = {s for k in ops.BACKWARD_KERNELS for s in k.symbols}
-    before = ops.backward_launch_counts()["flash_attention_bwd"]
+    before = ops.backward_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = run()
-    launched = ops.backward_launch_counts()["flash_attention_bwd"] - before
+    after = ops.backward_launch_counts()
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and e.time_range.end > e.time_range.start]
-    bwd_ms = sum(b - a for a, b, name in spans
-                 if any(s in name for s in names)) / 1e3
-    assert launched > 0 and bwd_ms > 0, (launched, bwd_ms)
     steps = out["steps"]
-    return dict(profiled_steps=steps,
-                device_ms_per_step=_union_ms([(a, b) for a, b, _ in spans])
-                / steps,
+    backward = {}
+    for k in ops.BACKWARD_KERNELS:
+        launched = after[k.name] - before[k.name]
+        if not launched:
+            continue
+        ms = sum(b - a for a, b, name in spans
+                 if any(s in name for s in k.symbols)) / 1e3
+        assert ms > 0, (k.name, launched)
+        backward[k.name] = dict(launches=launched, ms_per_launch=ms / launched,
+                                ms_per_step=ms / steps)
+    assert backward, "no backward kernel ran"
+    device = _union_ms([(a, b) for a, b, _ in spans])
+    return dict(profiled_steps=steps, device_ms_per_step=device / steps,
                 profiled_wall_ms_per_step=1e3 * out["wall_s"] / steps,
-                k2_backward_launches=launched,
-                k2_backward_ms_per_launch=bwd_ms / launched,
-                k2_backward_ms_per_step=bwd_ms / steps)
+                busy_share=device / (1e3 * out["wall_s"]),
+                backward=backward)
 
 
 def _split_mla(seen):
@@ -2062,15 +2251,16 @@ def main() -> int:
     deepseek, seen_deepseek = phase_engine("deepseek-engine")
     xlstm, _ = phase_engine("xlstm-engine")
     train_run, seen_train = phase_train()
+    hybrid_run, seen_hybrid = phase_train_hybrid()
     timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng,
                            "zamba2_long": seen_long, "whisper": seen_whisper,
                            "vlm": seen_vlm,
                            "deepseek_engine": seen_deepseek,
-                           "train": seen_train})
+                           "train": seen_train, "train_hybrid": seen_hybrid})
     runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng,
             "zamba2_long": long, "whisper": whisper, "vlm": vlm,
             "deepseek_engine": deepseek, "xlstm_engine": xlstm,
-            "train": train_run}
+            "train": train_run, "train_hybrid": hybrid_run}
     table = []
     from repro_torch.kernels import ops
     rows = [(k, k.name, lambda r, n=k.name: r["launches"][n]

@@ -9,9 +9,11 @@ Gradients: on the CPU the plain versions are differentiated by
 autograd.  On the card, when grad mode is on and an input requires a
 gradient, ``flash_attention`` (no window or MLA mode) runs
 ``flash_attention.FlashAttentionFn``, whose backward is K2's backward
-kernel, and every other kernel call raises a ``RuntimeError`` naming the
-kernel (K1, K3, K4, K5, K2's window and MLA modes): their outputs carry no
-``grad_fn``, so a gradient would silently stop at them.
+kernel, and ``ssd_chunk`` runs ``ssd_chunk.SsdChunkFn``, whose backward
+is K5's backward kernel; every other kernel call raises a
+``RuntimeError`` naming the kernel (K1, K3, K4, K2's window and MLA
+modes): their outputs carry no ``grad_fn``, so a gradient would silently
+stop at them.  Under ``no_grad`` nothing is guarded.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import int8_matmul as _int8
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import ssd_chunk_bwd as _ssd_bwd
 from repro_torch.kernels import topk_retrieval as _topk
 
 
@@ -92,6 +95,9 @@ BACKWARD_KERNELS = (
                    ("flash_bwd_prep", "flash_bwd_dkdv_wgmma",
                     "flash_bwd_dq_wgmma", "flash_bwd_delta", "flash_bwd_dkdv",
                     "flash_bwd_dq", "flash_bwd_sum")),
+    BackwardKernel("ssd_chunk_bwd", _ssd_bwd, "ssd_chunk",
+                   "src/repro/models/ssm.py:78",
+                   ("ssd_bwd_tiles", "ssd_bwd_finish")),
 )
 
 
@@ -166,7 +172,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
               C: torch.Tensor,
               dA: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_card(x):
-        _no_backward("ssd_chunk (K5)", x, dt, B, C, dA)
+        if _wants_grad(x, dt, B, C, dA):
+            return _ssd.SsdChunkFn.apply(x, dt, B, C, dA)
         return _ssd.ssd_chunk(x, dt, B, C, dA)
     return ref.ssd_chunk_ref(x, dt, B, C, dA)
 

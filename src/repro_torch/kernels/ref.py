@@ -249,3 +249,57 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     S = torch.einsum("bcqhn,bcqhp->bchnp",
                      B.float() * decay_end[..., None], dtx)
     return y, S
+
+
+def ssd_chunk_bwd_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, dA: torch.Tensor, dy: torch.Tensor,
+                      dS: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`ssd_chunk_ref`, step by step as K5's
+    backward computes them, in f32 (in f64 when x is f64, from the
+    forward's cs, the f64 sum rounded once to f32): shapes as
+    the forward's, dy (b,nc,Q,H,P) and dS (b,nc,H,N,P) the cotangents of
+    y and S -> (dx, ddt, dB, dC, ddA); dx, dB, dC in the inputs' dtype
+    (per head: autograd sums a group's heads), ddt and ddA f32 (f64)::
+
+        dtx = dt·x,  s = C Bᵀ,  L = exp(cs_i - cs_j) (i >= j, else 0),
+        M = s ⊙ L,  w_j = exp(cs_last - cs_j)
+        dM = dy dtxᵀ,  dsc = dM ⊙ L,  G = dM ⊙ M
+        d(dtx) = Mᵀ dy + w ⊙ (B dS)   ->  dx = dt·d(dtx), ddt = x·d(dtx)
+        dC = dsc B,  dB = dscᵀ C + w ⊙ (dtx dSᵀ)
+        dw_j = B_j·(dS dtx_j)
+        ddA_k = sum_{i>=k} (rowsum_i G - colsum_i G)  +  sum_{j<k} dw_j w_j
+
+    G's diagonal is left out of both sums (it cancels).  The reverse sum
+    over rows and the forward sum of the w terms run in f64, as the
+    forward's cumulative sum."""
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, Bf, Cf = (t.to(ft) for t in (x, B, C))
+    dyf, dSf, dtf = dy.to(ft), dS.to(ft), dt.to(ft)
+    Q = x.shape[2]
+    dtx = xf * dtf[..., None]                                # (b,nc,Q,H,P)
+    cs = chunk_cumsum(dA, dim=2).to(ft)                      # (b,nc,Q,H)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]       # (b,nc,Qi,Qj,H)
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(seg.masked_fill(~lower[None, None, :, :, None],
+                                  float("-inf")))
+    s = torch.einsum("bcqhn,bckhn->bcqkh", Cf, Bf)
+    M = s * L
+    w = torch.exp(cs[:, :, -1:, :] - cs)                     # (b,nc,Q,H)
+    dM = torch.einsum("bcqhp,bckhp->bcqkh", dyf, dtx)
+    dsc = dM * L
+    G = (dM * M).masked_fill(
+        torch.eye(Q, dtype=torch.bool, device=x.device)[None, None, :, :,
+                                                          None], 0.0)
+    BdS = torch.einsum("bcqhn,bchnp->bcqhp", Bf, dSf)        # (B dS)_j
+    ddtx = torch.einsum("bcqkh,bcqhp->bckhp", M, dyf) + w[..., None] * BdS
+    dC = torch.einsum("bcqkh,bckhn->bcqhn", dsc, Bf)
+    dSdtx = torch.einsum("bchnp,bcqhp->bcqhn", dSf, dtx)     # (dS dtx_j)
+    dB = (torch.einsum("bcqkh,bcqhn->bckhn", dsc, Cf)
+          + w[..., None] * dSdtx)
+    wterm = ((Bf * dSdtx).sum(-1) * w).double()              # dw_j w_j
+    rc = (G.sum(3) - G.sum(2)).double()                      # (b,nc,Q,H)
+    ddA = (torch.flip(torch.cumsum(torch.flip(rc, [2]), 2), [2])
+           + torch.cumsum(wterm, 2) - wterm).to(ft)
+    dx = (dtf[..., None] * ddtx).to(x.dtype)
+    ddt = (xf * ddtx).sum(-1)
+    return dx, ddt, dB.to(B.dtype), dC.to(C.dtype), ddA

@@ -14,6 +14,10 @@ no copy.
 (the engine's decode steps), ``ssd_chunk_mma`` for longer bf16 chunks
 (tensor cores), ``ssd_chunk_fwd`` for f32 chunks and for widths that are
 not multiples of 8 (CUDA cores).
+
+Training: :class:`SsdChunkFn` saves the inputs, and its backward is K5's
+backward kernel (``kernels/ssd_chunk_bwd.py``), which recomputes the
+decays and the scores.
 """
 from __future__ import annotations
 
@@ -202,6 +206,26 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     (y (b,nc,Q,H,P) f32, S (b,nc,H,N,P) f32).  x, B and C share one dtype
     (f32 or bf16) and are unit-stride on their last axis."""
     return run(x, dt, B, C, dA)
+
+
+class SsdChunkFn(torch.autograd.Function):
+    """K5 with a gradient, on the card: the forward saves x, dt, B, C
+    and dA; the backward is K5's backward kernel.  Module globals are read
+    at call time, so a wrapper set on :func:`ssd_chunk` or on
+    ``ssd_chunk_bwd.ssd_chunk_bwd`` sees both directions.  dB and dC are
+    per head: the backward of the caller's broadcast (an ``expand``
+    view, or ``repeat_interleave``) sums a group's heads."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, dA):
+        y, S = ssd_chunk(x, dt, B, C, dA)
+        ctx.save_for_backward(x, dt, B, C, dA)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        from repro_torch.kernels import ssd_chunk_bwd as bwd
+        return bwd.ssd_chunk_bwd(*ctx.saved_tensors, dy, dS)
 
 
 def run(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

@@ -8,6 +8,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path deepseek-engine
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path xlstm-engine
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-hybrid
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-parts
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
@@ -37,6 +38,9 @@ xlstm-350m (whole) in its place (``engine_model(dev, path)``).
 "dots", AdamW) on one fixed 8 x 256 batch of ``launch.train.
 synthetic_data``: a run is ``TRAIN_PROFILE_STEPS`` steps
 (``train_runner``), so its kernel table counts K2's backward too.
+``--path train-hybrid`` does the same with zamba2-1.2b whole on one
+fixed 4 x 512 batch (two chunks of 256 a row), whose table counts K5's
+backward and K2's.
 ``--path train-parts`` is not profiled: for each remat policy ("dots",
 "none", "full") it times the parts of a step of the same model on the
 same batch, each alone between two syncs (``train_step_parts``), and
@@ -99,6 +103,12 @@ DEEPSEEK_LAYERS = 4
 # repro/launch/train.py), one fixed 8 x 256 batch, lr 1e-3
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PROFILE_STEPS = \
     "qwen1.5-0.5b", 8, 256, 3
+# the hybrid family's train path: zamba2-1.2b whole on one fixed 4 x 512
+# batch, two chunks of 256 a row, so the state between them carries a
+# gradient
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ = "zamba2-1.2b", 4, 512
+TRAIN_PATHS = {"train": (TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
+               "train-hybrid": (HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ)}
 
 # the port's own kernels, by their __global__ names
 PORT_KERNELS = tuple(s for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)
@@ -318,22 +328,23 @@ def cross_runner(path: str, dev: torch.device) -> Callable[[], dict]:
     return run
 
 
-def train_runner(dev: torch.device) -> Callable[[], dict]:
-    """-> run(): TRAIN_PROFILE_STEPS AdamW steps of qwen1.5-0.5b (full
-    width, or reduced on the CPU) on one fixed batch; the model and its
-    state persist across runs."""
+def train_runner(dev: torch.device,
+                 path: str = "train") -> Callable[[], dict]:
+    """-> run(): TRAIN_PROFILE_STEPS AdamW steps of ``TRAIN_PATHS[path]``'s
+    model (full width, or reduced on the CPU) on its one fixed batch; the
+    model and its state persist across runs."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.train import synthetic_data
     from repro_torch.training import AdamWConfig, TrainConfig
     from repro_torch.training import make_train_step
-    cfg = get_config(TRAIN_ARCH)
+    arch, b, seq = TRAIN_PATHS[path]
+    cfg = get_config(arch)
     if dev.type != "cuda":
         cfg = reduced(cfg)
     init, step = make_train_step(cfg, TrainConfig(
         optimizer=AdamWConfig(lr=1e-3, warmup_steps=1)), dev)
     state = list(init(18))
-    batch = next(synthetic_data(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=18,
-                                device=dev))
+    batch = next(synthetic_data(cfg, b, seq, seed=18, device=dev))
 
     def run():
         t0 = time.monotonic()
@@ -342,7 +353,7 @@ def train_runner(dev: torch.device) -> Callable[[], dict]:
         loss = float(metrics["loss"])       # waits for the device
         return {"wall_s": time.monotonic() - t0, "loss": loss,
                 "steps": TRAIN_PROFILE_STEPS,
-                "tokens": TRAIN_PROFILE_STEPS * TRAIN_BATCH * TRAIN_SEQ}
+                "tokens": TRAIN_PROFILE_STEPS * b * seq}
     return run
 
 
@@ -427,7 +438,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None)
     ap.add_argument("--path", choices=("w2", *ENGINE_ARCHS, "zamba2-long",
-                                       *CROSS_ARCHS, "train", "train-parts"),
+                                       *CROSS_ARCHS, *TRAIN_PATHS,
+                                       "train-parts"),
                     default="w2")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -446,9 +458,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         run_once = cross_runner(args.path, dev)
     elif args.path in ENGINE_ARCHS:
         run_once = engine_runner(dev, args.path)
+    elif args.path in TRAIN_PATHS:
+        run_once = train_runner(dev, args.path)
     else:
-        run_once = {"w2": w2_runner, "zamba2-long": long_runner,
-                    "train": train_runner}[args.path](dev)
+        run_once = {"w2": w2_runner, "zamba2-long": long_runner}[args.path](
+            dev)
     warm = run_once()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()

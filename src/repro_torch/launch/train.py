@@ -9,8 +9,9 @@ Trains one model on synthetic data (one process, one device): on CUDA
 unless ``--device cpu``; ``--reduced`` trains the smoke-scale f32 config.
 Async checkpoints every ``--ckpt-every`` steps; ``--resume`` restarts
 from the newest complete one.  On the card, attention runs K2 and its
-backward kernel; the families whose path has a kernel with no backward
-(hybrid: K5; moe: K2's MLA mode) raise there and train on the CPU.
+backward kernel and the Mamba2 layers K5 and its backward kernel; the
+family whose path has a kernel mode with no backward (moe: K2's MLA
+mode) raises there and trains on the CPU.
 """
 from __future__ import annotations
 

@@ -864,13 +864,15 @@ def test_flash_backward_bf16_runs_are_bit_equal(cuda, b, sq, h, sk, n, e,
 
 @pytest.mark.cuda
 def test_flash_backward_wgmma_kernels_are_in_the_table(cuda):
-    """The bf16 route's kernels are rows of ``ops.BACKWARD_KERNELS``
-    (so chip_smoke's kernel line and the trace's symbol table list them),
-    and the built library shows them issuing wgmma (HGMMA) and TMA loads
-    (UTMALDG), the f32 route's CUDA-core kernels no wgmma."""
+    """The bf16 route's kernels are in K2's backward row of
+    ``ops.BACKWARD_KERNELS`` (so chip_smoke's kernel line and the trace's
+    symbol table list them), and the built library shows them issuing
+    wgmma (HGMMA) and TMA loads (UTMALDG), the f32 route's CUDA-core
+    kernels no wgmma."""
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention_bwd as kb
-    syms = {s for row in ops.BACKWARD_KERNELS for s in row.symbols}
+    syms = set({row.name: row for row in ops.BACKWARD_KERNELS}[
+        "flash_attention_bwd"].symbols)
     wgmma, cores = kb.kernel_for(torch.bfloat16), kb.kernel_for(torch.float32)
     assert set(wgmma) <= syms and set(cores) <= syms
     _build.library("flash_attention_bwd", kb._SIG)
@@ -954,9 +956,10 @@ def test_reduced_train_step_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_on_the_card(cuda):
-    """K1, K3, K4, K5 and K2's window and MLA modes refuse an input that
+    """K1, K3, K4 and K2's window and MLA modes refuse an input that
     requires a gradient under grad mode (their outputs carry none), naming
-    the kernel; under no_grad the same calls run."""
+    the kernel; under no_grad the same calls run.  (K5 carries a gradient:
+    test_ssd_chunk_fn_gradients_on_the_card.)"""
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_matmul import quantize_int8
     rng = np.random.default_rng(64)
@@ -981,11 +984,6 @@ def test_kernels_without_a_backward_raise_on_the_card(cuda):
             dev(2, 64), dev(128, 64, grad=False), 4),
         "int8_matmul (K4)": lambda: ops.int8_matmul(
             xq, wq, sx.requires_grad_(), sw, torch.float32),
-        "ssd_chunk (K5)": lambda: ops.ssd_chunk(
-            dev(1, 1, 16, 4, 16), torch.rand(1, 1, 16, 4, device=cuda),
-            dev(1, 1, 16, 4, 8, grad=False),
-            dev(1, 1, 16, 4, 8, grad=False),
-            -torch.rand(1, 1, 16, 4, device=cuda)),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=name.replace(
@@ -994,3 +992,133 @@ def test_kernels_without_a_backward_raise_on_the_card(cuda):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# -- K5's backward (the hybrid family's training) -------------------------------
+
+SSD_NAMES = ("dx", "ddt", "dB", "dC", "ddA")
+# (Q, nc) at zamba2's widths (64 heads, P = N = 64, B and C one group
+# broadcast to every head, stride 0): one row, a ragged chunk, the train
+# shape's chunks of 256, each alone and as two chunks
+SSD_BWD_CASES = [(1, 1), (1, 2), (77, 1), (77, 2), (256, 1), (256, 2)]
+
+
+def _ssd_bwd_args(rng, Q, nc, dtype, device):
+    x, dt, B, C, dA = _ssd_inputs(rng, 1, nc, Q, 64, 64, 64, dtype, device, 1)
+    dy = _dev(rng, (1, nc, Q, 64, 64), "float32", device)
+    dS = _dev(rng, (1, nc, 64, 64, 64), "float32", device)
+    return x, dt, B, C, dA, dy, dS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,nc", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_backward_kernel_matches_plain(cuda, Q, nc, dtype):
+    """K5's backward against its plain version at zamba2's shapes (A
+    down to -16, so cs reaches about -3000 at Q 256): dx, dB and dC (the
+    inputs' type, per head) at the input type's backward limit; ddt and
+    ddA (f32) against the plain version evaluated in f64 at the f32
+    limit; every gradient finite."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    args = _ssd_bwd_args(np.random.default_rng(70), Q, nc, dtype, cuda)
+    got = k5b.ssd_chunk_bwd(*args)
+    want = ref.ssd_chunk_bwd_ref(*args)
+    exact = ref.ssd_chunk_bwd_ref(*(t.double() for t in args))
+    torch.cuda.synchronize()
+    for name, g_, w, e in zip(SSD_NAMES, got, want, exact):
+        assert g_.shape == w.shape and g_.dtype == w.dtype, name
+        assert bool(g_.isfinite().all()), name
+        if name in ("ddt", "ddA"):
+            np.testing.assert_allclose(_f32(g_), _f32(e),
+                                       **_bwd_tol("float32", _f32(e)),
+                                       err_msg=name)
+        else:
+            assert float(g_.float().abs().max()) > 0, name
+            np.testing.assert_allclose(_f32(g_), _f32(w),
+                                       **_bwd_tol(dtype, _f32(w)),
+                                       err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_backward_runs_are_bit_equal(cuda, dtype):
+    """Two runs of K5's backward at the train shape's chunks give the
+    same bits: no atomics, fixed-order sums."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    args = _ssd_bwd_args(np.random.default_rng(71), 256, 2, dtype, cuda)
+    first, second = k5b.ssd_chunk_bwd(*args), k5b.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(SSD_NAMES, first, second):
+        assert torch.equal(a.view(torch.uint8), b_.view(torch.uint8)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_chunk_fn_gradients_on_the_card(cuda, groups):
+    """autograd through ops.ssd_chunk (SsdChunkFn: K5 and its backward)
+    gives the gradients of the plain forward differentiated by autograd
+    on the card, f32, with dt's and A's paths through dA and B, C one
+    group (expand) or two (repeat_interleave) whose heads' gradients
+    autograd sums."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    rng = np.random.default_rng(72)
+    b, nc, Q, H, P, N = 2, 2, 64, 8, 32, 16
+    x = _dev(rng, (b, nc, Q, H, P), "float32", cuda).requires_grad_()
+    dt = torch.nn.functional.softplus(_dev(rng, (b, nc, Q, H), "float32",
+                                           cuda)).requires_grad_()
+    A = (-torch.linspace(1.0, 16.0, H, device=cuda)).requires_grad_()
+    Bg, Cg = (_dev(rng, (b, nc, Q, groups, N), "float32",
+                   cuda).requires_grad_() for _ in range(2))
+    dy = _dev(rng, (b, nc, Q, H, P), "float32", cuda)
+    dS = _dev(rng, (b, nc, H, N, P), "float32", cuda)
+    leaves = (x, dt, A, Bg, Cg)
+
+    def grads(fn):
+        B, C = ((t.expand(-1, -1, -1, H, -1) if groups == 1 else
+                 t.repeat_interleave(H // groups, dim=3)) for t in (Bg, Cg))
+        return torch.autograd.grad(fn(x, dt, B, C, dt * A), leaves, (dy, dS))
+    before = k5b.launches.count
+    got = grads(ops.ssd_chunk)
+    want = grads(ref.ssd_chunk_ref)
+    torch.cuda.synchronize()
+    assert k5b.launches.count == before + 1
+    for name, g_, w in zip(("x", "dt", "A", "B", "C"), got, want):
+        np.testing.assert_allclose(_f32(g_), _f32(w),
+                                   **_bwd_tol("float32", _f32(w)),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_train_step_card_matches_cpu(cuda):
+    """One train step of reduced f32 zamba2 (7 layers: a group of 6
+    Mamba2 layers, the shared block, a tail layer; 2 x 40 tokens, two
+    chunks of 32 with a padded tail) on the card (K5, K2 and their
+    backwards) against the CPU plain path from the same weights: the loss
+    within 1e-4 relative, every gradient within 2e-5 + 1e-4·|want|; K5's
+    backward launched once per layer."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, lm
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = reduced(get_config("zamba2-1.2b"), layers=7)
+    cpu = build_model(cfg, "cpu").init(3, trainable=True)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(73).integers(
+        0, cfg.vocab_size, (2, 40)))
+    out = {}
+    before = ops.backward_launch_counts()["ssd_chunk_bwd"]
+    for p in (cpu, gpu):
+        t = toks.to(p.embed.device)
+        out[p.embed.device.type] = value_and_grad(
+            lambda m, b: lm.loss_fn(m, cfg, b), p,
+            {"tokens": t, "labels": t})
+    assert ops.backward_launch_counts()["ssd_chunk_bwd"] == before + 7
+    (lc, _), gc_ = out["cpu"]
+    (lg, _), gg = out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    for name, w in gc_.items():
+        np.testing.assert_allclose(_f32(gg[name]), _f32(w), atol=2e-5,
+                                   rtol=1e-4, err_msg=name)

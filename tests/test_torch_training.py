@@ -362,10 +362,6 @@ GUARDED = {
     "int8_matmul (K4)": lambda: ops.int8_matmul(
         torch.ones(4, 16, dtype=torch.int8),
         torch.ones(16, 8, dtype=torch.int8), _grad(4, 1), _grad(1, 8)),
-    "ssd_chunk (K5)": lambda: ops.ssd_chunk(
-        _grad(1, 1, 4, 2, 8), torch.rand(1, 1, 4, 2),
-        torch.randn(1, 1, 4, 2, 8), torch.randn(1, 1, 4, 2, 8),
-        -torch.rand(1, 1, 4, 2)),
 }
 
 
@@ -381,8 +377,9 @@ def test_kernels_without_a_backward_refuse_a_gradient_on_the_card(
 def test_only_k2_carries_a_gradient_and_inference_is_unguarded(monkeypatch):
     """On the CPU autograd differentiates K2's plain version; on the card
     route plain-mode K2 under grad takes FlashAttentionFn (its forward,
-    the K2 wrapper with return_lse, stood in for by the plain version);
-    under no_grad nothing is guarded."""
+    the K2 wrapper with return_lse, stood in for by the plain version),
+    as K5 takes SsdChunkFn (tests/test_torch_ssd_bwd.py): K2 and K5 carry
+    a gradient; under no_grad nothing is guarded, K5 included."""
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ref
     q, k, v = _grad(1, 4, 4, 16), _grad(1, 8, 2, 16), _grad(1, 8, 2, 16)
@@ -401,8 +398,14 @@ def test_only_k2_carries_a_gradient_and_inference_is_unguarded(monkeypatch):
     assert calls == [True]
     monkeypatch.undo()
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
+
+    def k5():
+        return ops.ssd_chunk(
+            _grad(1, 1, 4, 2, 8), torch.rand(1, 1, 4, 2),
+            torch.randn(1, 1, 4, 2, 8), torch.randn(1, 1, 4, 2, 8),
+            -torch.rand(1, 1, 4, 2))
     with torch.no_grad():
-        for name, call in GUARDED.items():
+        for name, call in {**GUARDED, "ssd_chunk (K5)": k5}.items():
             # the card route is taken, so the CPU tensors reach the CUDA
             # wrapper's own checks
             with pytest.raises(ValueError, match="CUDA"):
