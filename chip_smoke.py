@@ -21,7 +21,10 @@ failure ends the run with a non-zero exit code and no result line:
               kernels cp.async, and their bf16 decode_mla_mma and
               flash_mla_mma mma.sync (HMMA) fed by ldmatrix (LDSM);
               K2's bf16 backward kernels flash_bwd_dkdv_wgmma and
-              flash_bwd_dq_wgmma wgmma (HGMMA) and TMA loads (UTMALDG).
+              flash_bwd_dq_wgmma wgmma (HGMMA) and TMA loads (UTMALDG);
+              K5's bf16 backward kernels ssd_bwd_keys_mma and
+              ssd_bwd_queries_mma mma.sync (HMMA) and cp.async (LDGSTS),
+              with no spill in ptxas' report.
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
@@ -64,17 +67,20 @@ failure ends the run with a non-zero exit code and no result line:
               ragged sq, e 16, and g 3 (63-row query tiles); bf16 (the
               wgmma kernels) timed beside ``torch.autograd.grad`` through
               SDPA (backward only), f32 on the CUDA-core kernels; two runs
-              of each bit-equal.  K5's backward (``ssd_chunk_bwd``, CUDA
-              cores; no SASS check: it uses no tensor core) at zamba2's
+              of each bit-equal.  K5's backward (``ssd_chunk_bwd``) with
+              each route forced at every shape it takes (bf16 on both the
+              tensor-core ssd_bwd_keys_mma + ssd_bwd_queries_mma and the
+              CUDA-core ssd_bwd_tiles, f32 on ssd_bwd_tiles) at zamba2's
               widths (64 heads, P = N = 64, B and C one group broadcast
               to every head) for Q in {1, 77, 256} with nc in {1, 2} and
-              at the train shape (b 4, nc 2, Q 256), and a group per head:
-              dx, dB, dC against the plain version
+              at the train shape (b 4, nc 2, Q 256), and a group per head
+              at narrower widths: dx, dB, dC against the plain version
               (``ref.ssd_chunk_bwd_ref``) at the input type's BWD_TOL,
               ddt and ddA against the plain version evaluated in f64 at
               f32's, every gradient finite, two runs bit-equal; bf16
               timed beside the plain version (no library call computes
-              this function).
+              this function), both routes at the train shape, with the
+              device time of each role's kernel (torch.profiler).
 3. models   — the kernel path against the CPU plain path on a small input
               (same weights): the reduced qwen3 chat model, and a reduced
               f32 zamba2 (7 layers: one group, the shared block, one tail
@@ -167,6 +173,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -185,8 +192,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor cores
               torch.float32: 67e12,           # f32 outside the tensor cores
               torch.int8: 1979e12,            # int8 tensor cores (TOP/s)
               # f32 accuracy on the TF32 tensor cores (495 TFLOP/s) by
-              # three products of split operands, as K5's ssd_chunk_mma
-              "tf32x3": 495e12 / 3}
+              # three products of split operands, as K5's ssd_chunk_mma,
+              # or by two where the other operand is bf16 (exact in TF32)
+              "tf32x3": 495e12 / 3, "tf32x2": 495e12 / 2}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # K1/K2 in bf16 where every query sees at least MANY_KEYS keys (the window
 # and cross shapes; for the MLA mode against the near-exact version, see
@@ -600,10 +608,11 @@ def ssd_case(b, nc, Q, H, P, N, dtype, broadcast, g, kernel=None,
 SSD_BWD_NAMES = ("dx", "ddt", "dB", "dC", "ddA")
 
 
-def ssd_backward_case(b, nc, Q, H, P, N, dtype, broadcast, g):
+def ssd_backward_case(b, nc, Q, H, P, N, dtype, broadcast, g, kernel=None):
     """K5's backward at one shape: ``ssd_case``'s inputs (zamba2's
     decays, B and C one group broadcast to every head or a group each)
-    and f32 cotangents dy, dS.  Held to (``want``): dx, dB and dC to the
+    and f32 cotangents dy, dS; ``kernel`` forces a route (else
+    ``ssd_chunk_bwd.plan``'s).  Held to (``want``): dx, dB and dC to the
     plain version at the input type's BWD_TOL, ddt and ddA (f32 outputs)
     to the plain version evaluated in f64 (``f64``) at f32's.  No
     library call computes this function."""
@@ -626,7 +635,8 @@ def ssd_backward_case(b, nc, Q, H, P, N, dtype, broadcast, g):
                      for i, n in enumerate(SSD_BWD_NAMES))
     f32 = BWD_TOL[torch.float32]
     bnd = bound_ms(k5b.bytes_moved(*args), *k5b.flops(args[0], args[2]))
-    return dict(kernel=lambda: k5b.ssd_chunk_bwd(*full), plain=plain,
+    return dict(kernel=(lambda: k5b.ssd_chunk_bwd(*full)) if kernel is None
+                else (lambda: k5b.run(*full, kernel=kernel)), plain=plain,
                 want=want, f64=f64, library=None, bound=bnd, pair=True,
                 scaled=True, tols=tuple(f32 if n in ("ddt", "ddA")
                                         else BWD_TOL[dtype]
@@ -730,7 +740,8 @@ def phase_build():
     # cp.async in K1's and K2's MLA mode (decode_mla, flash_mla), and in
     # their bf16 decode_mla_mma and flash_mla_mma also mma.sync (HMMA) fed
     # by ldmatrix (LDSM); wgmma and TMA loads in K2's bf16 backward
-    # kernels.  Each named kernel must issue each opcode.
+    # kernels; mma.sync and cp.async in K5's bf16 backward kernels.  Each
+    # named kernel must issue each opcode.
     must = {"flash_fwd_wgmma": ("HGMMA", "UTMALDG"),
             "topk_partial": ("LDGSTS",),
             "decode_attn": ("LDG.E.128", "UCGABAR_ARV", "UCGABAR_WAIT"),
@@ -741,7 +752,9 @@ def phase_build():
             "flash_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
             "decode_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
             "flash_bwd_dkdv_wgmma": ("HGMMA", "UTMALDG"),
-            "flash_bwd_dq_wgmma": ("HGMMA", "UTMALDG")}
+            "flash_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
+            "ssd_bwd_keys_mma": ("HMMA", "LDGSTS"),
+            "ssd_bwd_queries_mma": ("HMMA", "LDGSTS")}
     for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG",
                                                "LDGSTS", "HMMA", "LDSM")),
                           ("topk_retrieval", ("LDGSTS",)),
@@ -751,7 +764,8 @@ def phase_build():
                           ("int8_matmul", ("IGMMA", "UTMALDG")),
                           ("ssd_chunk", ("HMMA", "LDGSTS", "LDG.E.128",
                                          "STG.E.128")),
-                          ("flash_attention_bwd", ("HGMMA", "UTMALDG"))):
+                          ("flash_attention_bwd", ("HGMMA", "UTMALDG")),
+                          ("ssd_chunk_bwd", ("HMMA", "LDGSTS"))):
         counts = _build.sass_counts(name, opcodes)
         say(f"[build] {name} SASS: " + " | ".join(
             f"{fn}: " + ", ".join(f"{c} {op}" for op, c in ops_.items())
@@ -760,6 +774,14 @@ def phase_build():
             for op in must.get(fn.split("<")[0], ()):
                 assert v[op] > 0, f"{fn} issues no {op}: {counts}"
         assert any(fn.split("<")[0] in must for fn in counts), counts
+    # K5's tensor-core backward keeps its fragments in registers: a spill
+    # would put them in local memory (ptxas' report, kept with the library)
+    mma_bwd = [ln for ln in _build.report("ssd_chunk_bwd")
+               if "_mma" in ln.split(":")[0]]
+    assert {ln.split(":")[0] for ln in mma_bwd} == {
+        "ssd_bwd_keys_mma", "ssd_bwd_queries_mma"}, mma_bwd
+    for ln in mma_bwd:
+        assert "spill" not in ln, f"ptxas spills: {ln}"
 
 
 def phase_kernels():
@@ -1162,51 +1184,92 @@ def check_backward(g, errs):
             say(line)
 
 
+def role_times(fn, reps=10):
+    """{kernel: device ms a call} of ``fn``'s launches under torch.profiler
+    (K5's backward: each role's kernel, and ssd_bwd_finish)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.time_range.end > e.time_range.start):
+            # "void (anonymous namespace)::name<args>(params)" -> name<args>
+            m = re.search(r"(\w+(?:<[^>(]*>)?)\(", e.name)
+            name = m.group(1) if m else e.name
+            out[name] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return dict(out)
+
+
 def check_ssd_backward(g, errs):
-    """K5's backward (``ssd_bwd_tiles`` + ``ssd_bwd_finish``) at zamba2's
-    widths (64 heads, P = N = 64, B and C one group broadcast to every
-    head): Q in {1, 77, 256} with nc in {1, 2}, and the train shape (b 4,
-    nc 2, Q 256), bf16 and f32, and a group per head in f32; bf16 timed.
-    Held as ``ssd_backward_case`` says; the plain version's own distance
-    from the f64 evaluation is printed beside the kernel's.  Every
-    gradient finite, dx, dB and dC not all 0, two runs bit-equal."""
+    """K5's backward with each route forced at every shape it takes: bf16
+    on the tensor cores (``ssd_bwd_mma``: ssd_bwd_keys_mma +
+    ssd_bwd_queries_mma) and on the CUDA cores (``ssd_bwd_tiles``), f32
+    on ``ssd_bwd_tiles``; at zamba2's widths (64 heads, P = N = 64, B and
+    C one group broadcast to every head): Q in {1, 77, 256} with nc in
+    {1, 2}, and the train shape (b 4, nc 2, Q 256); and a group per head
+    at narrower widths.  Held as ``ssd_backward_case`` says; the plain
+    version's own distance from the f64 evaluation is printed beside the
+    kernel's.  Every gradient finite, dx, dB and dC not all 0, two runs
+    bit-equal.  bf16 on the plan's route (the tensor cores) is timed at
+    the zamba2 shapes; at the train shape both routes are timed, with
+    each role kernel's device time."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
     both = (torch.bfloat16, torch.float32)
     cases = [(f"zamba2 Q={Q} nc={nc}", (1, nc, Q, 64, 64, 64, True), both)
              for Q in (1, 77, 256) for nc in (1, 2)]
     cases += [("train shape b=4 nc=2 Q=256", (4, 2, 256, 64, 64, 64, True),
                both),
               ("a group per head b=2 nc=3 Q=32 H=4 P=16 N=8",
-               (2, 3, 32, 4, 16, 8, False), (torch.float32,))]
+               (2, 3, 32, 4, 16, 8, False), both)]
     for what, shape, dtypes in cases:
         for dt in dtypes:
-            c = ssd_backward_case(*shape[:6], dt, shape[6], g)
-            got, again = c["kernel"](), c["kernel"]()
-            assert all(bool(t.isfinite().all()) for t in got), \
-                f"{what} {dt}: a gradient is not finite"
-            assert all(float(got[i].float().abs().max()) > 0
-                       for i in (0, 2, 3)), f"{what} {dt}: dx/dB/dC all 0"
-            assert all(torch.equal(a.view(torch.uint8), b_.view(torch.uint8))
-                       for a, b_ in zip(got, again)), \
-                f"{what} {dt}: two runs differ"
-            err = check_case(c, f"ssd_chunk_bwd {what} {dt}")
-            exact, plain = c["f64"](), c["plain"]()
-            far = {n: (max_err(got[i], exact[i]), max_err(plain[i],
-                                                          exact[i]))
-                   for i, n in enumerate(SSD_BWD_NAMES) if n in ("ddt",
-                                                                 "ddA")}
-            (a, r), (a32, r32) = BWD_TOL[dt], BWD_TOL[torch.float32]
-            line = (f"[kernels] ssd_chunk_bwd {what} {str(dt)[6:]} (two "
-                    f"runs bit-equal): max|err| {err:.2e} (dx/dB/dC from "
-                    f"the plain version within {a:.0e}·max|want| + "
-                    f"{r:.0e}·|want|, ddt/ddA from f64 within "
-                    f"{a32:.0e}·max|want| + {r32:.0e}·|want|); from f64, "
-                    f"kernel / plain: " + ", ".join(
-                        f"{n} {k:.2e} / {p:.2e}" for n, (k, p) in
-                        far.items()))
-            if dt == torch.bfloat16:
-                errs["ssd_chunk_bwd"] = max(errs["ssd_chunk_bwd"], err)
-                line += " | " + fmt(measure(c))
-            say(line)
+            routes = [k5b.plan(*shape[:6], dt).kernel]
+            if routes[0] == "ssd_bwd_mma":
+                routes.append("ssd_bwd_tiles")
+            for route in routes:
+                c = ssd_backward_case(*shape[:6], dt, shape[6], g, route)
+                got, again = c["kernel"](), c["kernel"]()
+                assert all(bool(t.isfinite().all()) for t in got), \
+                    f"{what} {dt} {route}: a gradient is not finite"
+                assert all(float(got[i].float().abs().max()) > 0
+                           for i in (0, 2, 3)), \
+                    f"{what} {dt} {route}: dx/dB/dC all 0"
+                assert all(torch.equal(a.view(torch.uint8),
+                                       b_.view(torch.uint8))
+                           for a, b_ in zip(got, again)), \
+                    f"{what} {dt} {route}: two runs differ"
+                err = check_case(c, f"ssd_chunk_bwd {what} {dt} {route}")
+                exact, plain = c["f64"](), c["plain"]()
+                far = {n: (max_err(got[i], exact[i]),
+                           max_err(plain[i], exact[i]))
+                       for i, n in enumerate(SSD_BWD_NAMES)
+                       if n in ("ddt", "ddA")}
+                (a, r), (a32, r32) = BWD_TOL[dt], BWD_TOL[torch.float32]
+                line = (f"[kernels] ssd_chunk_bwd {what} {str(dt)[6:]} "
+                        f"{route} (two runs bit-equal): max|err| {err:.2e} "
+                        f"(dx/dB/dC from the plain version within "
+                        f"{a:.0e}·max|want| + {r:.0e}·|want|, ddt/ddA from "
+                        f"f64 within {a32:.0e}·max|want| + "
+                        f"{r32:.0e}·|want|); from f64, kernel / plain: "
+                        + ", ".join(f"{n} {k:.2e} / {p:.2e}" for n, (k, p)
+                                    in far.items()))
+                timed_here = dt == torch.bfloat16 and (
+                    route == routes[0] or what.startswith("train"))
+                if dt == torch.bfloat16 and route == routes[0]:
+                    errs["ssd_chunk_bwd"] = max(errs["ssd_chunk_bwd"], err)
+                if timed_here and shape[6]:
+                    line += " | " + fmt(measure(c))
+                if what.startswith("train") and dt == torch.bfloat16:
+                    line += " | by kernel (torch.profiler, us a call): " + \
+                        ", ".join(f"{k} {1e3 * v:.1f}" for k, v in
+                                  role_times(c["kernel"]).items())
+                say(line)
 
 
 def check_reduced_training():

@@ -97,12 +97,28 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def report_path(name: str) -> Path:
+    """ptxas' report of the library at ``lib_path(name)``, kept beside it."""
+    return lib_path(name).with_suffix(".ptxas.txt")
+
+
+def report(name: str) -> List[str]:
+    """ptxas' report (:func:`ptxas_report`) of the library built from the
+    sources as they are now, whether this process compiled it or not."""
+    f = report_path(name)
+    if not f.exists():
+        raise RuntimeError(f"no ptxas report for {name}: {f} is missing")
+    return f.read_text().splitlines()
+
+
 def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every missing library of ``names`` (``csrc/<name>.cu``) in
-    parallel, one nvcc per source.
+    """Compile every library of ``names`` (``csrc/<name>.cu``) that is
+    missing, or has no ptxas report beside it, in parallel, one nvcc per
+    source.
     Returns {name: seconds} for those it compiled; prints ptxas' register
-    and shared-memory report for each."""
-    todo = [n for n in names if not lib_path(n).exists()]
+    and shared-memory report for each and keeps it at ``report_path``."""
+    todo = [n for n in names
+            if not (lib_path(n).exists() and report_path(n).exists())]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -121,12 +137,17 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu:\n{out}")
             continue
+        lines = ptxas_report(out)
         print(f"[build] {n}: {took[n]:.1f}s; ptxas per kernel: "
-              + " | ".join(ptxas_report(out)), flush=True)
+              + " | ".join(lines), flush=True)
         for ln in out.splitlines():
             if "warning" in ln.lower():
                 print(f"[build] {n}: {ln.strip()}", flush=True)
-        os.replace(tmp, lib_path(n))   # atomic: readers never see a partial
+        rep = tmp.with_suffix(".ptxas")
+        rep.write_text("".join(ln + "\n" for ln in lines))
+        # atomic: readers never see a partial library or report
+        os.replace(rep, report_path(n))
+        os.replace(tmp, lib_path(n))
     if errors:
         raise RuntimeError("\n".join(errors))
     return took

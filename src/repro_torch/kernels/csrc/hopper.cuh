@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // shared-memory addresses, mbarriers, TMA tile loads and their tensor maps,
 // bulk copies, wgmma shared-memory descriptors, fences and the few wgmma
-// shapes the kernels issue (bf16 for K2 and its backward, s8 for K4).
+// shapes the kernels issue (bf16 for K2 and its backward, s8 for K4);
+// cp.async and the mma.sync products of K5 and its backward (bf16, and
+// TF32 with an operand split into two TF32 halves).
 //
 // Layout convention.  A tile (of 16-bit or 8-bit elements) lives in shared
 // memory as TMA writes it with a swizzle of S bytes (S = 32 or 128): rows
@@ -263,6 +265,94 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// -- cp.async and mma.sync (K5 and its backward) -----------------------------
+//
+// Internal linkage (an unnamed namespace), as everything in mla.cuh: each
+// library that includes this header keeps its own copy.
+namespace {
+
+// 16 bytes from global `src` into shared memory at `dst`, asynchronously
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// close this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// f32 rounded to TF32 (10 mantissa bits), to nearest, ties away from 0
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo + O(2^-22 v), hi and lo both TF32: a product of two split
+// operands keeps f32 accuracy as hi·hi + hi·lo + lo·hi (lo·lo, 2^-22 of
+// the product, is dropped)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 16 bf16) · b (16 x 8 bf16), exact products
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8, f32) += a (16 x 8 TF32) · b (8 x 8 TF32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two neighbouring bf16 values as one register (the lower address in the
+// low half)
+__device__ __forceinline__ uint32_t u32_at(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// four 8 x 8 matrices of 16-bit elements from shared memory: lane l gives
+// the (16-byte aligned) address of row l % 8 of matrix l / 8; register m
+// holds matrix m, thread t its row t / 4, elements 2(t % 4) and 2(t % 4) + 1
+// (of 32-bit elements, word t % 4 of a row of four)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// the same, transposed: thread t holds rows 2(t % 4) and 2(t % 4) + 1 of
+// column t / 4 of each matrix (the first in the low half)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+}  // namespace
 
 // -- host: tensor maps -------------------------------------------------------
 

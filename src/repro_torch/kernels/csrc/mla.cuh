@@ -55,6 +55,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 // Everything here has internal linkage (an unnamed namespace): the K1 and
 // K2 libraries each instantiate these templates, and in a process that
@@ -377,34 +378,12 @@ constexpr size_t kMmaKBytes = (size_t)kMmaKeys * kMmaQS * 2;
 constexpr size_t kMmaSmem = kMmaQBytes + 2 * kMmaKBytes;
 static_assert(kThreads == 256, "attend_mma's 8 warps");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and register i holds matrix i in the mma fragment layout
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ldmatrix, mma.sync and cp.async groups: hopper.cuh's
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldsm_x4;
+using repro::ldsm_x4_t;
+using repro::mma_bf16;
 
 // (x, y) = hi + lo, each a bf16 pair with x in the low half
 __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
@@ -414,14 +393,6 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Grid (nsplit, ⌈g·sq / kMmaRows⌉, b·n), kThreads threads, kMmaSmem bytes
@@ -463,7 +434,7 @@ __device__ __forceinline__ void attend_mma(const Args& a,
                          });
   };
   if (ntiles > 0) load_keys(0);
-  cp_commit();
+  cp_async_commit();
 
   // this thread's rows (block-local 16·rg + gq and + 8)
   bool rvalid[2];
@@ -488,10 +459,10 @@ __device__ __forceinline__ void attend_mma(const Args& a,
   for (int tile = 0; tile < ntiles; ++tile) {
     if (tile + 1 < ntiles) {
       load_keys(tile + 1);   // the other buffer, freed by the last sync
-      cp_commit();
-      cp_wait_group<1>();
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      cp_wait_group<0>();
+      cp_async_wait<0>();
     }
     __syncthreads();
     const T* sK = sK0 + (tile & 1) * kMmaKeys * kMmaQS;
@@ -581,7 +552,7 @@ __device__ __forceinline__ void attend_mma(const Args& a,
       }
     __syncthreads();  // every warp is done with this K buffer
   }
-  cp_wait_group<0>();  // the Q tile, where the split had no key
+  cp_async_wait<0>();  // the Q tile, where the split had no key
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

@@ -63,6 +63,12 @@
 
 namespace {
 
+using repro::cp_async16;
+using repro::mma_bf16;
+using repro::mma_tf32;
+using repro::split_tf32;
+using repro::u32_at;
+
 struct Strides {
   long long b, c, q, h;
 };
@@ -440,11 +446,6 @@ struct MmaLayout {
   }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(repro::smem_u32(dst)), "l"(src) : "memory");
-}
-
 // arrive on `bar` once this thread's earlier cp.async copies have landed
 // (the barrier counts one arrival per thread of the block)
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
@@ -452,43 +453,8 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                :: "r"(repro::smem_u32(bar)) : "memory");
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo + O(2^-22 v), hi and lo both TF32
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ uint32_t u32_at(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // rows q..q+64 of a (rows, 8 * chunks) bf16 tile by 16-byte cp.async, a

@@ -97,7 +97,8 @@ BACKWARD_KERNELS = (
                     "flash_bwd_dq", "flash_bwd_sum")),
     BackwardKernel("ssd_chunk_bwd", _ssd_bwd, "ssd_chunk",
                    "src/repro/models/ssm.py:78",
-                   ("ssd_bwd_tiles", "ssd_bwd_finish")),
+                   ("ssd_bwd_keys_mma", "ssd_bwd_queries_mma",
+                    "ssd_bwd_tiles", "ssd_bwd_finish")),
 )
 
 

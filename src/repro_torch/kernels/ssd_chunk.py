@@ -307,16 +307,19 @@ def flops(x: torch.Tensor, B: torch.Tensor) -> List[tuple]:
     """-> [(flops, rate)]: flops (2 per multiply-add) and the peak rate
     that prices them.  The causal scores C·Bᵀ over the Q(Q+1)/2 visible
     pairs are a product of the inputs' own type with f32 sums, which the
-    bf16 tensor cores compute exactly (torch.bfloat16); the products on f32
-    operands, (scores ⊙ L)(dt·x) over the same pairs and the state
-    (B ⊙ decay)ᵀ(dt·x), hold f32 accuracy fastest on the TF32 tensor cores
-    split three ways, hi·hi + hi·lo + lo·hi ("tf32x3", a third of the TF32
-    rate), as are f32 scores.  The elementwise exp and scaling are not
+    bf16 tensor cores compute exactly (torch.bfloat16).  The products
+    with f32 factors, (scores ⊙ L)(dt·x) over the same pairs and the
+    state (B ⊙ decay)ᵀ(dt·x), hold f32 accuracy fastest on the TF32
+    tensor cores with the f32 operand split, hi·hi + hi·lo + lo·hi
+    ("tf32x3", a third of the TF32 rate), as do f32 scores; in bf16, dt
+    can go to the other side, so x (exact in TF32) is one operand and two
+    products do ("tf32x2").  The elementwise exp and scaling are not
     counted."""
     b, nc, Q, H, Pd = x.shape
     N = B.shape[-1]
     pairs = Q * (Q + 1) // 2
     cells = 2 * b * nc * H
-    scores = torch.bfloat16 if x.dtype == torch.bfloat16 else "tf32x3"
-    return [(cells * pairs * N, scores),
-            (cells * (pairs * Pd + Q * N * Pd), "tf32x3")]
+    bf16 = x.dtype == torch.bfloat16
+    return [(cells * pairs * N, torch.bfloat16 if bf16 else "tf32x3"),
+            (cells * (pairs * Pd + Q * N * Pd),
+             "tf32x2" if bf16 else "tf32x3")]

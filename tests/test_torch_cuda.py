@@ -1039,6 +1039,121 @@ def test_ssd_backward_kernel_matches_plain(cuda, Q, nc, dtype):
                                        err_msg=name)
 
 
+def _ssd_bwd_close(got, args, dtype):
+    """K5's backward held as test_ssd_backward_kernel_matches_plain holds
+    it: dx, dB, dC against the plain version at the input type's limit,
+    ddt and ddA against the plain version in f64 at f32's, all finite."""
+    want = ref.ssd_chunk_bwd_ref(*args)
+    exact = ref.ssd_chunk_bwd_ref(*(t.double() for t in args))
+    torch.cuda.synchronize()
+    for name, g_, w, e in zip(SSD_NAMES, got, want, exact):
+        assert g_.shape == w.shape and g_.dtype == w.dtype, name
+        assert bool(g_.isfinite().all()), name
+        if name in ("ddt", "ddA"):
+            np.testing.assert_allclose(_f32(g_), _f32(e),
+                                       **_bwd_tol("float32", _f32(e)),
+                                       err_msg=name)
+        else:
+            assert float(g_.float().abs().max()) > 0, name
+            np.testing.assert_allclose(_f32(g_), _f32(w),
+                                       **_bwd_tol(dtype, _f32(w)),
+                                       err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,nc", SSD_BWD_CASES)
+@pytest.mark.parametrize("kernel", ["ssd_bwd_mma", "ssd_bwd_tiles"])
+def test_ssd_backward_each_bf16_route_matches_plain(cuda, Q, nc, kernel):
+    """K5's backward in bf16 with each route forced (the tensor-core
+    ssd_bwd_keys_mma + ssd_bwd_queries_mma, the CUDA-core ssd_bwd_tiles)
+    at zamba2's shapes, held as the plan's route is."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    args = _ssd_bwd_args(np.random.default_rng(74), Q, nc, "bfloat16", cuda)
+    _ssd_bwd_close(k5b.run(*args, kernel=kernel), args, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,Q,H,P,N,groups", [
+    (2, 3, 33, 4, 16, 8, None), (1, 2, 130, 6, 32, 24, None),
+    (1, 1, 200, 3, 40, 56, 1), (2, 1, 16, 2, 64, 64, 1)])
+def test_ssd_backward_mma_takes_every_width_of_8(cuda, b, nc, Q, H, P, N,
+                                                  groups):
+    """The tensor-core route at widths below 64 (multiples of 8), ragged
+    chunks and a group per head or one group broadcast to every head."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    rng = np.random.default_rng(75)
+    x, dt, B, C, dA = _ssd_inputs(rng, b, nc, Q, H, P, N, "bfloat16", cuda,
+                                  groups)
+    args = (x, dt, B, C, dA, _dev(rng, (b, nc, Q, H, P), "float32", cuda),
+            _dev(rng, (b, nc, H, N, P), "float32", cuda))
+    assert k5b.plan(b, nc, Q, H, P, N, torch.bfloat16,
+                    card=k5b._card(cuda)).kernel == "ssd_bwd_mma"
+    _ssd_bwd_close(k5b.run(*args, kernel="ssd_bwd_mma"), args, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_ssd_backward_mma_copies_rows_off_16_bytes(cuda):
+    """x, B and C views whose rows do not start on 16 bytes (the mma
+    route's copies need them to) are copied first, with the same
+    gradients."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    from repro_torch.kernels.decode_attention import rows_aligned
+    rng = np.random.default_rng(76)
+    x, dt, B, C, dA, dy, dS = _ssd_bwd_args(rng, 77, 2, "bfloat16", cuda)
+    wide = _dev(rng, (1, 2, 77, 64, 72), "bfloat16", cuda)
+    wide[..., 1:65] = x
+    xv = wide[..., 1:65]
+    assert not rows_aligned(xv)
+    args = (xv, dt, B, C, dA, dy, dS)
+    got = k5b.run(*args, kernel="ssd_bwd_mma")
+    again = k5b.run(x, dt, B, C, dA, dy, dS, kernel="ssd_bwd_mma")
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(SSD_NAMES, got, again):
+        assert torch.equal(a, b_), name
+    _ssd_bwd_close(got, args, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,nc", [(77, 1), (256, 2)])
+def test_ssd_backward_mma_is_bit_equal_and_counted_once(cuda, Q, nc):
+    """Two runs of the tensor-core route give the same bits (no atomics,
+    fixed-order sums), and each call counts one launch."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    args = _ssd_bwd_args(np.random.default_rng(77), Q, nc, "bfloat16",
+                         cuda)
+    before = k5b.launches.count
+    first = k5b.run(*args, kernel="ssd_bwd_mma")
+    assert k5b.launches.count == before + 1
+    second = k5b.ssd_chunk_bwd(*args)
+    assert k5b.launches.count == before + 2
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(SSD_NAMES, first, second):
+        assert torch.equal(a.view(torch.uint8), b_.view(torch.uint8)), name
+
+
+@pytest.mark.cuda
+def test_ssd_backward_routes_refuse_what_they_do_not_take(cuda):
+    """The tensor-core route refuses f32 and widths off multiples of 8; a
+    width past 64 raises on either route; no call falls back."""
+    from repro_torch.kernels import ssd_chunk_bwd as k5b
+    rng = np.random.default_rng(78)
+    f32 = _ssd_bwd_args(rng, 33, 1, "float32", cuda)
+    with pytest.raises(ValueError, match="ssd_bwd_mma takes bf16"):
+        k5b.run(*f32, kernel="ssd_bwd_mma")
+    x, dt, B, C, dA = _ssd_inputs(rng, 1, 1, 33, 4, 12, 8, "bfloat16", cuda)
+    odd = (x, dt, B, C, dA, _dev(rng, (1, 1, 33, 4, 12), "float32", cuda),
+           _dev(rng, (1, 1, 4, 8, 12), "float32", cuda))
+    with pytest.raises(ValueError, match="ssd_bwd_mma takes bf16"):
+        k5b.run(*odd, kernel="ssd_bwd_mma")
+    _ssd_bwd_close(k5b.ssd_chunk_bwd(*odd), odd, "bfloat16")
+    x, dt, B, C, dA = _ssd_inputs(rng, 1, 1, 33, 4, 72, 8, "bfloat16", cuda)
+    wide = (x, dt, B, C, dA, _dev(rng, (1, 1, 33, 4, 72), "float32", cuda),
+            _dev(rng, (1, 1, 4, 8, 72), "float32", cuda))
+    for kernel in k5b.KERNEL_IDS:
+        with pytest.raises(ValueError, match="head dim"):
+            k5b.run(*wide, kernel=kernel)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_ssd_backward_runs_are_bit_equal(cuda, dtype):
