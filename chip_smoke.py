@@ -24,7 +24,10 @@ failure ends the run with a non-zero exit code and no result line:
               flash_bwd_dq_wgmma wgmma (HGMMA) and TMA loads (UTMALDG);
               K5's bf16 backward kernels ssd_bwd_keys_mma and
               ssd_bwd_queries_mma mma.sync (HMMA) and cp.async (LDGSTS),
-              with no spill in ptxas' report.
+              with no spill in ptxas' report; K2's wgmma kernels at
+              DeepSeek's naive widths (flash_fwd_wgmma<192,128>,
+              flash_bwd_dkdv_wgmma<192,128>, flash_bwd_dq_wgmma<192,128>)
+              built, issuing HGMMA and UTMALDG, with no spill.
 2. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' full-width shapes, in bf16 and f32 (TF32 off),
               with its time, the plain version's and a library yardstick's:
@@ -54,9 +57,11 @@ failure ends the run with a non-zero exit code and no result line:
               frames or 1601 patches, cross decode over them), each timed
               beside SDPA with an explicit boolean mask.  K1 and K2 in
               their MLA mode at deepseek-v2's shapes (128 heads over the
-              576-wide latent rows, values their first 512 columns; K2's
-              naive form at q·k 192, v 128), in bf16 (timed beside SDPA
-              with ``scale`` and ``enable_gqa``) and f32.  K2's backward
+              576-wide latent rows, values their first 512 columns), in
+              bf16 (timed beside SDPA with ``scale`` and ``enable_gqa``)
+              and f32; K2 at the naive form's widths (q·k 192, v 128, n =
+              h, the scale) on its generic route, 150 x 8 and 128 x 128
+              heads.  K2's backward
               (``flash_attention_bwd``) against its plain version
               (``ref.flash_attention_bwd_ref``) from K2's own output and
               LSE (the LSE held to the plain one too), bf16 and f32: at
@@ -64,7 +69,9 @@ failure ends the run with a non-zero exit code and no result line:
               causal), g in {2, 4, 8} at e 128, whisper's encoder (1500
               x 1500, 20 heads of 64) and a cross shape (16 queries over
               1601 keys, g 8, e 128) non-causal, kv_len < sk with a
-              ragged sq, e 16, and g 3 (63-row query tiles); bf16 (the
+              ragged sq, e 16, g 3 (63-row query tiles), and the naive MLA
+              form (keys 192, values 128, the scale) at the moe train
+              shape (b 2, 512 positions, 128 heads) and 150 x 8; bf16 (the
               wgmma kernels) timed beside ``torch.autograd.grad`` through
               SDPA (backward only), f32 on the CUDA-core kernels; two runs
               of each bit-equal.  K5's backward (``ssd_chunk_bwd``) with
@@ -99,8 +106,12 @@ failure ends the run with a non-zero exit code and no result line:
               gradient, none 0 on the card that is not on the CPU), then
               the losses of 3 AdamW steps, and the same for a reduced f32
               zamba2 (7 layers: a group, the shared block, a tail layer;
-              K5's backward once a layer); deepseek-v3 must raise the
-              no-backward error (K2's MLA mode).
+              K5's backward once a layer), a reduced llama-3.2-vision
+              (xgate 0.5, K2 non-causal over the patches) and a small f32
+              deepseek-v2 and v3 at their published MLA widths (K2 at
+              192/128 and its backward once an attention block, v3's MTP
+              block included); an absorbed-form MLA call under grad must
+              raise the no-backward error (K2's MLA mode).
 4. serve    — one isolated W2 query with straggler re-dispatch off (every
               stage runs once, so its launch counts are the query's own),
               then a ``--serve --spec-decode`` run of two staggered
@@ -156,12 +167,22 @@ failure ends the run with a non-zero exit code and no result line:
               K2's 6), the median step time, tokens/s and peak memory;
               then 3 profiled steps: the device time a step and K5's
               backward a launch.
+   train moe — deepseek-v2-236b at every published width (d 5120, 128
+              heads, MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 /
+              v 128, expert d_ff 1536, 2 shared, top-6, vocab 102400;
+              bf16, remat "full"), cut to 2 of its 60 layers (first_k_dense
+              + 1: one dense, one MoE) and 64 of its 160 routed experts,
+              the same way on one fixed 2 x 512 batch: 12 AdamW steps, the
+              loss down by 0.5 or more, K2's backward 2 launches a step,
+              every K2 forward the naive form (192/128) on the generic
+              route and none in MLA mode; the median step time, tokens/s
+              and peak memory; then 3 profiled steps.
 5. timing   — each kernel, its plain version and the yardstick replayed at
               every shape the isolated W2 query, the zamba2 engine and
-              long-context runs, the whisper and vlm runs and the
-              deepseek engine gave it, weighted by launches; K1's and K2's
-              MLA mode as rows of their own; K2's and K5's backwards at
-              the shapes the train phases gave them.
+              long-context runs, the whisper and vlm runs, the deepseek
+              engine and the train phases gave it, weighted by launches;
+              K1's and K2's MLA mode as rows of their own; K2's and K5's
+              backwards at the shapes the train phases gave them.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one GPU, no network.
@@ -215,6 +236,11 @@ ENGINE_PATH = ("decode_attention", "flash_attention", "ssd_chunk")
 MLA_ROW = {"decode_attention": "decode_attention (MLA mode)",
            "flash_attention": "flash_attention (MLA mode)"}
 MLA_SCALE = 192 ** -0.5       # deepseek: 1/sqrt(qk_nope + qk_rope)
+# K2's wgmma kernels at DeepSeek's naive MLA widths (keys 192, values 128),
+# by library, as ptxas and cuobjdump name them
+NAIVE_WGMMA = {"flash_attention": ("flash_fwd_wgmma<192,128>",),
+               "flash_attention_bwd": ("flash_bwd_dkdv_wgmma<192,128>",
+                                       "flash_bwd_dq_wgmma<192,128>")}
 # K2's backward against its plain version, both computing in f32 from the
 # same inputs and the forward's LSE: (atol as a share of the gradient's
 # largest |value|, rtol).  f32: sums of up to 1500·g products in another
@@ -395,7 +421,8 @@ def decode_case(b, h, n, S, e, dtype, g, lengths=None, nsplit=None,
 
 
 def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
-               kv_len=None, window=0, return_lse=False):
+               kv_len=None, window=0, return_lse=False, ev=None,
+               scale=None):
     """With ``window`` > 0, the window mode over an sk-slot ring after
     positions 0..q_offset+sq-1 were written (the chunk's own slots
     included, as the model writes them before it attends).  With
@@ -403,11 +430,14 @@ def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
     and the LSE, held to ``ref.flash_attention_lse_ref``'s (the output
     within the forward's limit, the LSE within LSE_TOL); the LSE's bytes
     count in the bound, and the yardstick stays SDPA's forward (its LSE is
-    internal to it)."""
+    internal to it).  ``ev`` and ``scale``: values ev wide and the scores'
+    scale, DeepSeek's naive MLA form at (192, 128) (SDPA given the same
+    ``scale``)."""
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ref
+    ev = e if ev is None else ev
     q = rand((b, sq, h, e), dtype, g)
-    k, v = rand((b, sk, n, e), dtype, g), rand((b, sk, n, e), dtype, g)
+    k, v = rand((b, sk, n, e), dtype, g), rand((b, sk, n, ev), dtype, g)
     kv_len = sk if kv_len is None else kv_len
     wm = {}
     if window > 0:
@@ -432,13 +462,17 @@ def flash_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, is_causal=plain_causal,
+            attn_mask=mask, is_causal=plain_causal, scale=scale,
             enable_gqa=True).transpose(1, 2)
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, **wm)
+    if scale is not None:
+        kw["scale"] = scale
     lse_bytes = 4 * b * h * sq if return_lse else 0
     bnd = bound_ms(k2.bytes_moved(q, k, kv_len, causal=causal,
-                                  q_offset=q_offset, **wm) + lse_bytes,
-                   (k2.flops(q, kv_len, causal, q_offset, **wm), dtype))
+                                  q_offset=q_offset, ev=ev, **wm)
+                   + lse_bytes,
+                   (k2.flops(q, kv_len, causal, q_offset, ev=ev, **wm),
+                    dtype))
     if return_lse:
         return dict(kernel=lambda: k2.flash_attention(q, k, v, **kw,
                                                       return_lse=True),
@@ -488,15 +522,14 @@ def mla_decode_case(b, h, S, dtype, g, lengths=None, nsplit=None,
 
 def mla_flash_case(b, sq, h, sk, n, e, ev, dtype, g, causal=True,
                    q_offset=0, kv_len=None):
-    """K2's MLA mode: absorbed (e 576, ev 512: n = 1, values the keys'
-    first columns) or naive (e 192, ev 128, n = h, values apart); held
-    to the plain version and to the near-exact one as mla_decode_case
-    says."""
+    """K2's MLA mode, the absorbed form (e 576, ev 512: n = 1, values the
+    keys' first columns); held to the plain version and to the near-exact
+    one as mla_decode_case says."""
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ref
     q = rand((b, sq, h, e), dtype, g)
     k = rand((b, sk, n, e), dtype, g)
-    v = k[..., :ev] if e == 576 else rand((b, sk, n, ev), dtype, g)
+    v = k[..., :ev]
     kv_len = sk if kv_len is None else kv_len
     qpos = torch.arange(sq, device="cuda") + q_offset
     mask = torch.arange(sk, device="cuda")[None] < kv_len
@@ -522,20 +555,24 @@ def mla_flash_case(b, sq, h, sk, n, e, ev, dtype, g, causal=True,
 
 
 def backward_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
-                  kv_len=None):
+                  kv_len=None, ev=None, scale=None):
     """K2's backward at one shape: q, k, v and dO random, O and the LSE
     from K2's forward (``flash_attention(..., return_lse=True)``, what
     FlashAttentionFn saves); the yardstick is ``torch.autograd.grad``
     through SDPA with ``enable_gqa`` (a boolean mask off q_offset 0 or
-    kv_len < sk), the backward alone.  ``fwd`` is ((K2's O, its LSE), the
-    plain version's), and ``fwd_tols`` their limits."""
+    kv_len < sk; ``scale`` where given), the backward alone.  ``fwd`` is
+    ((K2's O, its LSE), the plain version's), and ``fwd_tols`` their
+    limits.  ``ev``, ``scale``: as :func:`flash_case`'s."""
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import flash_attention_bwd as kb
     from repro_torch.kernels import ref
-    q, do = rand((b, sq, h, e), dtype, g), rand((b, sq, h, e), dtype, g)
-    k, v = rand((b, sk, n, e), dtype, g), rand((b, sk, n, e), dtype, g)
+    ev = e if ev is None else ev
+    q, do = rand((b, sq, h, e), dtype, g), rand((b, sq, h, ev), dtype, g)
+    k, v = rand((b, sk, n, e), dtype, g), rand((b, sk, n, ev), dtype, g)
     kv_len = sk if kv_len is None else kv_len
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if scale is not None:
+        kw["scale"] = scale
     o, lse = k2.flash_attention(q, k, v, **kw, return_lse=True)
     plain_causal = causal and q_offset == 0 and kv_len == sk
     mask = None
@@ -550,13 +587,13 @@ def backward_case(b, sq, h, sk, n, e, dtype, g, causal=True, q_offset=0,
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                          is_causal=plain_causal,
-                                         enable_gqa=True)
+                                         scale=scale, enable_gqa=True)
     dout = do.transpose(1, 2)
 
     def library():
         return torch.autograd.grad(out, leaves, dout, retain_graph=True)
-    bnd = bound_ms(kb.bytes_moved(q, k, lse),
-                   (kb.flops(q, kv_len, causal, q_offset), dtype))
+    bnd = bound_ms(kb.bytes_moved(q, k, lse, v),
+                   (kb.flops(q, kv_len, causal, q_offset, ev=ev), dtype))
     return dict(kernel=lambda: kb.flash_attention_bwd(q, k, v, o, do, lse,
                                                       **kw),
                 plain=lambda: ref.flash_attention_bwd_ref(q, k, v, o, do,
@@ -774,6 +811,8 @@ def phase_build():
             for op in must.get(fn.split("<")[0], ()):
                 assert v[op] > 0, f"{fn} issues no {op}: {counts}"
         assert any(fn.split("<")[0] in must for fn in counts), counts
+        for fn in NAIVE_WGMMA.get(name, ()):    # (192, 128): HGMMA, UTMALDG
+            assert fn in counts, (fn, sorted(counts))
     # K5's tensor-core backward keeps its fragments in registers: a spill
     # would put them in local memory (ptxas' report, kept with the library)
     mma_bwd = [ln for ln in _build.report("ssd_chunk_bwd")
@@ -782,6 +821,14 @@ def phase_build():
         "ssd_bwd_keys_mma", "ssd_bwd_queries_mma"}, mma_bwd
     for ln in mma_bwd:
         assert "spill" not in ln, f"ptxas spills: {ln}"
+    # so do K2's wgmma kernels at DeepSeek's naive widths, where the dK/dV
+    # pass splits its 64 keys' accumulators over two warpgroups
+    for name, fns in NAIVE_WGMMA.items():
+        lines = {ln.split(":")[0]: ln for ln in _build.report(name)}
+        for fn in fns:
+            assert fn in lines, (fn, sorted(lines))
+            assert "spill" not in lines[fn], f"ptxas spills: {lines[fn]}"
+            say(f"[build] no spill: {lines[fn]}")
 
 
 def phase_kernels():
@@ -1089,9 +1136,13 @@ def check_mla(g, errs):
     scale 1/sqrt(192)): K1 over 64 / 333 / 923 latent rows of a 1024-row
     cache (the engine's decode), with the plan's split, no split and
     ragged rows; K2 absorbed for the engine's prefill chunks (128 queries
-    at 0, 384 and 772, 77 at 256) and a 5-token first chunk; K2 naive
-    (the forward without a cache) at 150 and 128 positions.  bf16 timed
-    beside SDPA, f32 checked."""
+    at 0, 384 and 772, 77 at 256) and a 5-token first chunk.  bf16 timed
+    beside SDPA, f32 checked.  Then the naive form (the forward without a
+    cache: keys 192, values 128, n = h) at 150 positions of 8 heads and
+    128 of 128 heads, which runs K2's generic route (flash_fwd_wgmma in
+    bf16, flash_fwd in f32), held to the plain version as every K2 call
+    there is, bf16 timed beside SDPA with ``scale``."""
+    from repro_torch.kernels import flash_attention as k2
     cases = []
     for S in (64, 333, 923):
         cases.append((f"decode_attention MLA 128 heads S={S}",
@@ -1108,10 +1159,6 @@ def check_mla(g, errs):
                       lambda dt, sq=sq, off=off: mla_flash_case(
                           1, sq, 128, off + sq, 1, 576, 512, dt, g,
                           q_offset=off)))
-    for sq, h in ((150, 8), (128, 128)):
-        cases.append((f"flash_attention MLA naive sq={sq} h={h}",
-                      lambda dt, sq=sq, h=h: mla_flash_case(
-                          1, sq, h, sq, h, 192, 128, dt, g)))
     for what, make in cases:
         name = MLA_ROW[what.split()[0]]
         for dt in (torch.bfloat16, torch.float32):
@@ -1128,6 +1175,22 @@ def check_mla(g, errs):
             if dt == torch.bfloat16:
                 line += " | " + fmt(measure(c))
             say(line)
+    for sq, h in ((150, 8), (128, 128)):
+        for dt in (torch.bfloat16, torch.float32):
+            before = k2.mla_launches.count
+            c = flash_case(1, sq, h, sq, h, 192, dt, g, ev=128,
+                           scale=MLA_SCALE)
+            err = check_case(c, f"flash_attention naive MLA sq={sq} h={h} "
+                                f"{dt}")
+            assert k2.mla_launches.count == before, "naive form in MLA mode"
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            line = (f"[kernels] flash_attention naive MLA form (192/128, "
+                    f"generic route {k2.kernel_for(dt)}) sq={sq} h={h} "
+                    f"{str(dt)[6:]}: max|err| {err:.2e} <= "
+                    f"{tol_str(c['tol'])}")
+            if dt == torch.bfloat16:
+                line += " | " + fmt(measure(c))
+            say(line)
 
 
 def check_backward(g, errs):
@@ -1136,8 +1199,11 @@ def check_backward(g, errs):
     timed) and f32 (the CUDA-core kernels), at the training shape, g
     2/4/8 at e 128, whisper's encoder and a cross shape (non-causal),
     kv_len < sk with a ragged sq at an offset, e 16 (the reduced models'
-    width) and g 3 (63-row query tiles).  No gradient may be all 0, and
-    two runs must give the same bits."""
+    width) and g 3 (63-row query tiles); DeepSeek's naive MLA form (keys
+    192, values 128, n = h, scale 1/sqrt(192), causal) at the moe train
+    phase's shape (b 2, 512 positions, 128 heads: two warpgroups a dK/dV
+    block) and at 150 positions of 8 heads.  No gradient may be all 0,
+    and two runs must give the same bits."""
     from repro_torch.kernels import flash_attention_bwd as kb
     assert kb.kernel_for(torch.bfloat16) == ("flash_bwd_dkdv_wgmma",
                                              "flash_bwd_dq_wgmma")
@@ -1155,7 +1221,11 @@ def check_backward(g, errs):
                (2, 77, 8, 128, 4, 64), dict(q_offset=24, kv_len=101)),
               ("e=16 b=2 s=40 g=2 causal", (2, 40, 4, 40, 2, 16), {}),
               ("g=3 sq=50 sk=70 e=64 non-causal", (2, 50, 12, 70, 4, 64),
-               dict(causal=False))]
+               dict(causal=False)),
+              ("naive MLA 192/128 train moe b=2 s=512 h=n=128 causal",
+               (2, 512, 128, 512, 128, 192), dict(ev=128, scale=MLA_SCALE)),
+              ("naive MLA 192/128 sq=150 h=n=8 causal",
+               (1, 150, 8, 150, 8, 192), dict(ev=128, scale=MLA_SCALE))]
     for what, shape, kw in cases:
         for dt in (torch.bfloat16, torch.float32):
             c = backward_case(*shape, dt, g, **kw)
@@ -1274,31 +1344,46 @@ def check_ssd_backward(g, errs):
 
 def check_reduced_training():
     """One train step on the card against the CPU plain path from the same
-    weights, reduced f32 qwen1.5, whisper, xlstm and zamba2 (7 layers: a
-    group, so the shared block runs, and a tail layer; chunks of 32) on 2
-    x 64 tokens of ``launch.train.synthetic_data``: the loss within
-    TRAIN_LOSS_TOL and every gradient within TRAIN_TOL (so none is 0 on
-    the card that is not on the CPU), K2's backward launched where the
-    model attends, K5's once a Mamba2 layer; then the losses of 3 AdamW
-    steps on each device within TRAIN_LOSS_TOL (not the parameters: AdamW
-    divides by sqrt(v), so an element whose gradient is near 0 may move
-    by up to 2·lr on a sign that rounding decides).  deepseek-v3 must
-    raise the no-backward error of K2's MLA mode."""
+    weights, on 2 x 64 tokens of ``launch.train.synthetic_data``: reduced
+    f32 qwen1.5, whisper, xlstm, zamba2 (7 layers: a group, so the shared
+    block runs, and a tail layer; chunks of 32) and llama-3.2-vision (a
+    self and a cross block, xgate 0.5, a seeded source: K2 non-causal
+    over the patches), and the small f32 deepseek-v2 and v3 at their
+    published MLA widths (``published_mla_config``: 8 heads, v3's MTP
+    block included; K2 at keys 192, values 128 with the scale, on the
+    generic route): the loss within TRAIN_LOSS_TOL and every gradient
+    within TRAIN_TOL (so none is 0 on the card that is not on the CPU),
+    K2's backward launched where the model attends (once an attention
+    block for deepseek), K5's once a Mamba2 layer; then the losses of 3
+    AdamW steps on each device within TRAIN_LOSS_TOL (not the
+    parameters: AdamW divides by sqrt(v), so an element whose gradient is
+    near 0 may move by up to 2·lr on a sign that rounding decides).  An
+    absorbed-form MLA call (576-wide queries over a latent head) under
+    grad must still raise the no-backward error of K2's MLA mode."""
     import copy
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import XGATE, published_mla_config
     from repro_torch.launch.train import synthetic_data
-    from repro_torch.models import build_model, lm
+    from repro_torch.models import lm
     from repro_torch.training import (AdamWConfig, TrainConfig, adamw_init,
                                       make_train_step)
     from repro_torch.training.train_loop import value_and_grad
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
-    for arch, layers in (("qwen1.5-0.5b", 2), ("whisper-large-v3", 2),
-                         ("xlstm-350m", 2), ("zamba2-1.2b", 7)):
-        cfg = reduced(get_config(arch), layers=layers)
+    cfgs = [reduced(get_config(arch), layers=layers)
+            for arch, layers in (("qwen1.5-0.5b", 2), ("whisper-large-v3", 2),
+                                 ("xlstm-350m", 2), ("zamba2-1.2b", 7),
+                                 ("llama-3.2-vision-90b", 2))]
+    cfgs += [published_mla_config(arch)
+             for arch in ("deepseek-v2-236b", "deepseek-v3-671b")]
+    for cfg in cfgs:
+        arch = cfg.name
         init, step = make_train_step(cfg, tcfg, "cpu")   # runs on any device
         cpu, cpu_state = init(18)
+        for blk in cpu.modules():       # tanh(0) would drop cross-attention
+            if getattr(blk, "xgate", None) is not None:
+                blk.xgate.data.fill_(XGATE)
         gpu = copy.deepcopy(cpu).to("cuda")
         gpu_state = adamw_init(gpu, tcfg.optimizer)
         batch = next(synthetic_data(cfg, 2, 64, seed=18, device="cpu"))
@@ -1318,6 +1403,10 @@ def check_reduced_training():
                    if float(gc_[k].abs().max()) > 0), f"{arch}: a 0 gradient"
         assert (bwd["flash_attention_bwd"] > 0) == (cfg.family != "ssm"), \
             (arch, bwd)
+        if cfg.family == "moe":
+            assert bwd["flash_attention_bwd"] == (cfg.num_layers
+                                                  + cfg.mtp_depth), bwd
+            assert ops.mla_launch_counts()["flash_attention"] == 0
         assert bwd["ssd_chunk_bwd"] == (cfg.num_layers if cfg.family
                                         == "hybrid" else 0), (arch, bwd)
         losses = {}
@@ -1329,26 +1418,27 @@ def check_reduced_training():
                 losses[dev].append(float(m["loss"]))
         np.testing.assert_allclose(losses["cuda"], losses["cpu"],
                                    rtol=TRAIN_LOSS_TOL)
-        say(f"[models] train step {cfg.name} f32 reduced ({cfg.family}), "
-            f"card vs CPU plain path: loss rel err {lerr:.2e}, gradients "
-            f"({len(gc_)} leaves) max|err| {gerr:.2e} <= "
+        widths = (f", MLA widths q·k {cfg.mla.qk_head_dim} v "
+                  f"{cfg.mla.v_head_dim}, {cfg.num_heads} heads, MTP "
+                  f"{cfg.mtp_depth}" if cfg.family == "moe" else "")
+        say(f"[models] train step {cfg.name} f32 reduced ({cfg.family}"
+            f"{widths}), card vs CPU plain path: loss rel err {lerr:.2e}, "
+            f"gradients ({len(gc_)} leaves) max|err| {gerr:.2e} <= "
             f"{tol_str(TRAIN_TOL)}, backward launches {bwd}; 3 AdamW "
             f"steps' losses card {losses['cuda']} cpu {losses['cpu']}")
-    for arch, name in (("deepseek-v3-671b",
-                        "flash_attention (K2) in MLA mode"),):
-        cfg = reduced(get_config(arch))
-        params = build_model(cfg, "cuda").init(18, trainable=True)
-        batch = next(synthetic_data(cfg, 2, 16, seed=18, device="cuda"))
-        try:
-            loss_, _ = lm.loss_fn(params, cfg, batch)
-            loss_.backward()
-        except RuntimeError as e:
-            assert f"{name} has no backward kernel" in str(e), str(e)
-            say(f"[models] train step {cfg.name} reduced ({cfg.family}) on "
-                f"the card raises: {str(e)[:90]}...")
-        else:
-            raise AssertionError(f"{arch} trained on the card through a "
-                                 f"kernel with no backward")
+    lat = torch.randn(1, 32, 1, 576, device="cuda", requires_grad=True)
+    name = "flash_attention (K2) in MLA mode"
+    try:
+        ops.flash_attention(torch.randn(1, 8, 4, 576, device="cuda",
+                                        requires_grad=True),
+                            lat, lat[..., :512], q_offset=24,
+                            scale=MLA_SCALE)
+    except RuntimeError as e:
+        assert f"{name} has no backward kernel" in str(e), str(e)
+        say(f"[models] an absorbed-form MLA call (576/512 over a latent "
+            f"head) under grad on the card raises: {str(e)[:90]}...")
+    else:
+        raise AssertionError("K2's absorbed MLA mode took a gradient")
 
 
 def phase_models():
@@ -1523,8 +1613,11 @@ def check_reduced_mla_and_xlstm():
     CPU plain path and on the kernel path: a 150-token (45 for xlstm)
     prefill, then 8 greedy tokens.  Greedy ids equal, prefill logits
     within 1e-4; on the card deepseek's no-cache forward (the naive form,
-    K2 MLA at 192/128) against its cached prefill (the absorbed form, K2
-    MLA at 576/512) within 1e-3, and both MLA modes launched."""
+    K2 at 192/128) against its cached prefill (the absorbed form, K2 MLA
+    at 576/512) within 1e-3, and both MLA modes launched.  The
+    no-cache forward's attention is the naive form (keys 192, values
+    128, n = h): K2's generic route (flash_fwd in f32), not its MLA
+    mode."""
     import copy
 
     from repro_torch.configs import get_config, reduced
@@ -1605,13 +1698,18 @@ def _k2_key(q, k, v, *, causal=True, q_offset=0, kv_len=None,
             kv_positions=None, window=0, scale=None, return_lse=False):
     """A ring's state follows from q_offset: from q_offset = sk - sq on the
     ring is full and each query sees the same number of slots, so the
-    offset is clamped there.  An MLA-mode call is keyed "mla", the
-    training forward (``return_lse``) "lse"."""
+    offset is clamped there.  An MLA-mode call is keyed "mla", the naive
+    MLA form (the generic route with values narrower than keys and a
+    scale) "naive", the training forward (``return_lse``) "lse"."""
+    from repro_torch.kernels import flash_attention as k2
     b, sq, h, e = q.shape
     sk = k.shape[1]
-    if scale is not None or v.shape[-1] != e:
+    if k2.is_mla(k, v, scale):
         return ("mla", b, sq, h, sk, k.shape[2], e, v.shape[-1], q.dtype,
                 causal, q_offset, kv_len)
+    if v.shape[-1] != e or scale is not None:     # the naive MLA form
+        return ("naive", return_lse, b, sq, h, sk, k.shape[2], e, q.dtype,
+                causal, q_offset, kv_len, v.shape[-1], scale)
     if return_lse:
         return ("lse", b, sq, h, sk, k.shape[2], e, q.dtype, causal,
                 q_offset, kv_len)
@@ -1637,10 +1735,11 @@ def _k5b_key(x, dt, B, C, dA, dy, dS):
     return _k5_key(x, dt, B, C, dA)
 
 
-def _kb_key(q, k, v, o, do, lse, *, causal, q_offset=0, kv_len=None):
+def _kb_key(q, k, v, o, do, lse, *, causal, q_offset=0, kv_len=None,
+            scale=None):
     b, sq, h, e = q.shape
     return (b, sq, h, k.shape[1], k.shape[2], e, q.dtype, causal, q_offset,
-            kv_len)
+            kv_len, v.shape[-1], scale)
 
 
 # per kernel of repro_torch.kernels.ops.KERNELS: the shape key of one
@@ -1657,20 +1756,30 @@ def _mla_k2_case(key, g):
                           q_offset=q_offset, kv_len=kv_len)
 
 
+def _k2_case(key, g):
+    if key[0] == "naive":
+        (_, lse, b, sq, h, sk, n, e, dtype, causal, q_offset, kv_len, ev,
+         scale) = key
+        return flash_case(b, sq, h, sk, n, e, dtype, g, causal, q_offset,
+                          kv_len, return_lse=lse, ev=ev, scale=scale)
+    if key[0] == "lse":
+        return flash_case(*key[1:8], g, *key[8:], return_lse=True)
+    return flash_case(*key[:7], g, *key[7:])
+
+
 REPLAY = {
     "decode_attention": (_k1_key, lambda key, g: decode_case(
         *key[:6], g, window=key[6], ring_end=key[7]) if len(key) > 6
         else decode_case(*key, g)),
     MLA_ROW["decode_attention"]: (_k1_key, _mla_k1_case),
     MLA_ROW["flash_attention"]: (_k2_key, _mla_k2_case),
-    "flash_attention": (_k2_key, lambda key, g: flash_case(
-        *key[1:8], g, *key[8:], return_lse=True) if key[0] == "lse"
-        else flash_case(*key[:7], g, *key[7:])),
+    "flash_attention": (_k2_key, _k2_case),
     "topk_retrieval": (_k3_key, lambda key, g: topk_case(*key, g)),
     "int8_matmul": (_k4_key, lambda key, g: int8_case(*key, g)),
     "ssd_chunk": (_k5_key, lambda key, g: ssd_case(*key, g)),
     "flash_attention_bwd": (_kb_key, lambda key, g: backward_case(
-        *key[:7], g, causal=key[7], q_offset=key[8], kv_len=key[9])),
+        *key[:7], g, causal=key[7], q_offset=key[8], kv_len=key[9],
+        ev=key[10], scale=key[11])),
     "ssd_chunk_bwd": (_k5b_key, lambda key, g: ssd_backward_case(*key, g)),
 }
 
@@ -2155,6 +2264,84 @@ def phase_train_hybrid():
     return summary, shapes.seen
 
 
+def phase_train_moe():
+    """deepseek-v2-236b at every published width in bf16 with its remat
+    "full" (d 5120, 128 heads, q_lora 1536, kv_lora 512, nope 128, rope
+    64, v 128, expert d_ff 1536, 2 shared experts, top-6, vocab 102400),
+    cut two ways (``profile_serve.moe_train_config``): depth to
+    first_k_dense + 1 = 2 layers (one dense, one MoE), and the routed
+    experts from 160 to 64 (with 160 the weights, gradients and AdamW
+    moments alone take 64 GB, before AdamW's f32 temporaries of the
+    expert leaf); random weights from seed 18, through
+    ``repro_torch.training.train`` on one fixed 2 x 512 batch of
+    ``launch.train.synthetic_data``: 12 AdamW steps at lr 1e-3, warm-up
+    1, every step logged, counters at 0 just before and read just after.
+    A step launches K2's backward once an MLA layer (2), and every K2
+    forward of the run is the naive form (keys 192, values 128) on the
+    generic route (bf16: flash_fwd_wgmma), none in MLA mode.  Then 3
+    profiled steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (MOE_BATCH, MOE_EXPERTS,
+                                                  MOE_LAYERS, MOE_SEQ,
+                                                  moe_train_config)
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.training import AdamWConfig, TrainConfig, train
+    _free()
+    cfg = moe_train_config()
+    m, e = cfg.mla, cfg.moe
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, m.q_lora_rank,
+            m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
+            m.v_head_dim, e.d_ff, e.num_shared_experts, e.top_k,
+            e.num_experts, e.first_k_dense, cfg.vocab_size, cfg.dtype,
+            cfg.remat) == (MOE_LAYERS, 5120, 128, 1536, 512, 128, 64, 128,
+                           1536, 2, 6, MOE_EXPERTS, 1, 102400, "bfloat16",
+                           "full"), cfg
+    dev = torch.device("cuda")
+    batch = next(synthetic_data(cfg, MOE_BATCH, MOE_SEQ, seed=18,
+                                device=dev))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                     # just before the main path
+    with ShapeLog() as shapes:
+        params, state, hist = train(cfg, itertools.repeat(batch),
+                                    steps=TRAIN_STEPS, tcfg=tcfg, seed=18,
+                                    log_every=1, device=dev)
+    counts = ops.launch_counts()                  # just after
+    bwd = ops.backward_launch_counts()
+    mla = ops.mla_launch_counts()
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, state
+    losses = [h["loss"] for h in hist]
+    step_s = statistics.median(b["wall"] - a["wall"]
+                               for a, b in zip(hist[1:], hist[2:]))
+    summary = dict(model=f"{cfg.name} ({MOE_LAYERS} of 60 layers, "
+                         f"{MOE_EXPERTS} of 160 routed experts)",
+                   params_b=n_params / 1e9, batch=MOE_BATCH, seq=MOE_SEQ,
+                   steps=TRAIN_STEPS, losses=losses,
+                   step_ms_median=1e3 * step_s,
+                   tokens_per_s=MOE_BATCH * MOE_SEQ / step_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=counts, bwd_launches=bwd, mla_launches=mla,
+                   k2_forward_per_step=counts["flash_attention"] / TRAIN_STEPS,
+                   k2_backward_per_step=(bwd["flash_attention_bwd"]
+                                         / TRAIN_STEPS))
+    say(f"[train moe] {json.dumps(summary)}")
+    k2_keys = shapes.seen["flash_attention"]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] <= losses[0] - TRAIN_DROP, losses
+    assert bwd["flash_attention_bwd"] == MOE_LAYERS * TRAIN_STEPS, bwd
+    assert mla["flash_attention"] == 0 and counts["flash_attention"] > 0
+    assert k2_keys and all(
+        k[0] == "naive" and k[7:9] == (192, torch.bfloat16) and k[12] == 128
+        for k in k2_keys), k2_keys
+    _free()
+    prof = profile_train_steps("train-moe")
+    summary.update(prof)
+    say_profile("train moe", summary)
+    _free()
+    return summary, shapes.seen
+
+
 def say_profile(label, summary):
     b = summary["backward"]
     say(f"[{label}] profiled {summary['profiled_steps']} steps: device "
@@ -2315,15 +2502,18 @@ def main() -> int:
     xlstm, _ = phase_engine("xlstm-engine")
     train_run, seen_train = phase_train()
     hybrid_run, seen_hybrid = phase_train_hybrid()
+    moe_run, seen_moe = phase_train_moe()
     timing = phase_timing({"w2_isolated": seen, "zamba2_engine": seen_eng,
                            "zamba2_long": seen_long, "whisper": seen_whisper,
                            "vlm": seen_vlm,
                            "deepseek_engine": seen_deepseek,
-                           "train": seen_train, "train_hybrid": seen_hybrid})
+                           "train": seen_train, "train_hybrid": seen_hybrid,
+                           "train_moe": seen_moe})
     runs = {"w2_isolated": iso, "serve_spec": cont, "zamba2_engine": eng,
             "zamba2_long": long, "whisper": whisper, "vlm": vlm,
             "deepseek_engine": deepseek, "xlstm_engine": xlstm,
-            "train": train_run, "train_hybrid": hybrid_run}
+            "train": train_run, "train_hybrid": hybrid_run,
+            "train_moe": moe_run}
     table = []
     from repro_torch.kernels import ops
     rows = [(k, k.name, lambda r, n=k.name: r["launches"][n]

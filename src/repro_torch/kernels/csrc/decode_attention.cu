@@ -423,11 +423,11 @@ int launch_g(const void* q, const void* k, const void* v,
 }
 
 // MLA mode: mla.cuh's tile loop with one query per batch row
-template <typename T, int EK, int EV, bool VK>
+template <typename T, int EK, int EV>
 __global__ void __launch_bounds__(repro_mla::kThreads, 2)
 decode_mla(const repro_mla::Args a) {
   extern __shared__ __align__(16) unsigned char mla_smem[];
-  repro_mla::attend<T, EK, EV, VK>(a, mla_smem);
+  repro_mla::attend<T, EK, EV>(a, mla_smem);
 }
 
 // MLA mode in bf16: mla.cuh's tensor-core tile loop, one query a row
@@ -444,10 +444,10 @@ decode_mla_combine(const float* part_o, const float* part_ml, T* out,
   repro_mla::combine<T, EV>(part_o, part_ml, out, rows, nsplit);
 }
 
-template <typename T, int EK, int EV, bool VK>
+template <typename T, int EK, int EV>
 int launch_mla(const repro_mla::Args& a, cudaStream_t stream) {
-  return repro_mla::launch<T, EK, EV, VK>(
-      decode_mla<T, EK, EV, VK>, decode_mla_combine<T, EV>, a, stream);
+  return repro_mla::launch<T, EK, EV>(
+      decode_mla<T, EK, EV>, decode_mla_combine<T, EV>, a, stream);
 }
 
 }  // namespace
@@ -508,17 +508,17 @@ extern "C" int repro_decode_mla(
     void* stream) {
   if (lengths == nullptr || ek != 576 || ev != 512)
     return cudaErrorInvalidValue;
-  repro_mla::Args a{q, k, k, static_cast<const int*>(lengths), out,
+  repro_mla::Args a{q, k, static_cast<const int*>(lengths), out,
                     static_cast<float*>(part_o),
                     static_cast<float*>(part_ml), b, 1, h, n, S, S, 0, 0,
                     chunk, nsplit, scale * 1.4426950408889634f, qsb, 0,
-                    qsh, ksb, kss, ksn, ksb, kss, ksn};
+                    qsh, ksb, kss, ksn};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBF16 && mma && chunk % repro_mla::kMmaKeys == 0)
     return repro_mla::launch_rows<__nv_bfloat16, 512>(
         decode_mla_mma, decode_mla_combine<__nv_bfloat16, 512>, a,
         repro_mla::kMmaRows, repro_mla::kMmaSmem, st);
   if (dtype == repro::kF32 && !mma)
-    return launch_mla<float, 576, 512, true>(a, st);
+    return launch_mla<float, 576, 512>(a, st);
   return cudaErrorInvalidValue;
 }

@@ -14,21 +14,29 @@
 // and how many SMs the grid keeps busy.
 //
 // bf16: flash_fwd_wgmma, for Hopper.
-//  * Both products on the tensor cores: S = Q·Kᵀ as wgmma m64n64k16 with Q
-//    and K in shared memory (K-major), O += P·V as wgmma m64nEk16 with P
-//    from registers (the S accumulator rounded to bf16 in place: the
-//    reference's cast of the unnormalised probabilities to V's dtype) and V
-//    from shared memory, MN-major (the descriptor's transpose bit).  One
-//    warpgroup owns a 64-row M tile; the online softmax runs on the
-//    accumulator fragments in registers, masking before exp.
+//  * Key and value widths are template arguments (EK, EV): (16, 16), (64,
+//    64), (128, 128), and (192, 128), the naive form of DeepSeek's MLA
+//    (q·k over nope 128 + rope 64, values of 128, n = h, an explicit
+//    scale), which is plain attention with values narrower than keys.
+//  * Both products on the tensor cores: S = Q·Kᵀ as wgmma m64n64k16 over
+//    EK with Q and K in shared memory (K-major), O += P·V as wgmma
+//    m64n(EV)k16 with P from registers (the S accumulator rounded to bf16
+//    in place: the reference's cast of the unnormalised probabilities to
+//    V's dtype) and V from shared memory, MN-major (the descriptor's
+//    transpose bit).  One warpgroup owns a 64-row M tile; the online
+//    softmax runs on the accumulator fragments in registers, masking
+//    before exp.  The O accumulator is EV/2 f32 a thread (64 at EV 128).
 //  * The g = h/n query heads of a kv head are packed into the M tile, rows
 //    (query position, head of the group), so each K/V tile is read once
 //    for all g heads; the Q box of the tensor map is (e, g heads, 64/g
 //    positions), which lands in exactly that row order.
-//  * K/V tiles of 64 keys arrive by TMA into a ring of 2 (e = 128) or 3
+//  * K/V tiles of 64 keys arrive by TMA into a ring of 2 (EK >= 128) or 3
 //    stages, in the swizzled layout wgmma reads (128-byte swizzle, or 32
 //    bytes at e = 16; the tensor map and the descriptors name the same
-//    one).  An mbarrier per stage counts the bytes; the next tiles load
+//    one): a 192-wide Q or K tile is three 128-byte swizzle atoms, a
+//    128-wide V two, so at (192, 128) shared memory holds Q 24 KB and two
+//    stages of K 24 KB + V 16 KB, 107,544 bytes with the barriers and the
+//    alignment.  An mbarrier per stage counts the bytes; the next tiles load
 //    while the current one is multiplied.  The tensor maps are encoded in
 //    the C entry point over the strided (b, S, n, e) views, so a cache
 //    prefix is read in place; cuTensorMapEncodeTiled comes through the
@@ -51,10 +59,11 @@
 // position (loaded while S = Q Kᵀ is on the tensor cores), and
 // kernels/flash_attention.py::plan splits the whole slot range.
 //
-// Semantics follow the reference `mha`: scores = q.k / sqrt(e) in f32,
-// causal mask q_offset + qpos >= kpos, keys kpos >= kv_len masked, the
-// unnormalised probabilities are rounded to V's dtype before P.V, f32
-// accumulation, fully masked rows output 0.  q-head hh reads kv head
+// Semantics follow the reference `mha`: scores = q.k · scale in f32 (scale
+// 1/sqrt(ek) unless the caller gives one), causal mask q_offset + qpos >=
+// kpos, keys kpos >= kv_len masked, the unnormalised probabilities are
+// rounded to V's dtype before P.V, f32 accumulation, fully masked rows
+// output 0.  q-head hh reads kv head
 // hh / (h/n), the (b,sq,n,g,e) grouping of layers._gqa_scores.
 //
 // LSE output (training): when the caller passes an lse pointer, each
@@ -67,12 +76,12 @@
 // writes nothing.
 //
 // MLA mode (flash_mla_mma, flash_mla, flash_mla_combine): DeepSeek's
-// multi-head latent attention, values narrower than keys and an explicit
-// scale: the absorbed prefill chunk (q·k 576, v 512 = the keys' first
-// columns, n = 1, g = 128, causal at q_offset) and the naive forward (q·k
-// 192, v 128, n = h).  bf16 absorbed chunks run mla.cuh's tensor-core
-// loop (flash_mla_mma), the rest its CUDA-core loop, shared with K1's
-// MLA mode.
+// multi-head latent attention in its absorbed form, the prefill chunk over
+// the latent cache (q·k 576, v 512 = the keys' first columns, n = 1, g =
+// 128, causal at q_offset, an explicit scale): bf16 runs mla.cuh's
+// tensor-core loop (flash_mla_mma), f32 its CUDA-core loop (flash_mla),
+// shared with K1's MLA mode.  It has no LSE output and no backward: no
+// training path runs a cache.
 #include <climits>
 
 #include "common.cuh"
@@ -93,28 +102,30 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kBQ / kWarps;
 
-template <int E>
+// shared memory: Q [kBQ][EK], K [kBK][EK + 1], V [kBK][EV + 1], P
+// [kBQ][kBK], alpha and l: 70,144 bytes at (192, 128), 53,760 at (128, 128)
+template <int EK, int EV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * E + 2 * kBK * (E + 1) + kBQ * kBK + 2 * kBQ);
+  return sizeof(float) * (kBQ * EK + kBK * (EK + 1) + kBK * (EV + 1) +
+                          kBQ * kBK + 2 * kBQ);
 }
 
-template <typename T, int E>
+template <typename T, int EK, int EV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ kv_positions,
           T* __restrict__ out, float* __restrict__ lse, int sq, int h,
           int n, int kv_len,
-          int q_offset, int causal, int window, long long qsb,
+          int q_offset, int causal, int window, float scale, long long qsb,
           long long qss, long long qsh, long long ksb, long long kss,
           long long ksn, long long vsb, long long vss, long long vsn) {
-  constexpr int kTPC = kThreads / E;
+  constexpr int kTPC = kThreads / EV;
   constexpr int kRows = kBQ / kTPC;
   extern __shared__ float smem[];
-  float* qs = smem;                        // [kBQ][E]
-  float* ks = qs + kBQ * E;                // [kBK][E + 1]
-  float* vs = ks + kBK * (E + 1);          // [kBK][E + 1]
-  float* ps = vs + kBK * (E + 1);          // [kBQ][kBK]
+  float* qs = smem;                        // [kBQ][EK]
+  float* ks = qs + kBQ * EK;               // [kBK][EK + 1]
+  float* vs = ks + kBK * (EK + 1);         // [kBK][EV + 1]
+  float* ps = vs + kBK * (EV + 1);         // [kBQ][kBK]
   float* alpha_s = ps + kBQ * kBK;         // [kBQ]
   float* l_s = alpha_s + kBQ;              // [kBQ]
 
@@ -125,8 +136,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bi * ksb + kvh * ksn;
   const T* vb = v + bi * vsb + kvh * vsn;
 
-  for (int i = t; i < kBQ * E; i += kThreads) {
-    const int r = i / E, j = i % E;
+  for (int i = t; i < kBQ * EK; i += kThreads) {
+    const int r = i / EK, j = i % EK;
     qs[i] = (q0 + r < sq) ? repro::to_f(qb[(long long)(q0 + r) * qss + j])
                           : 0.f;
   }
@@ -134,7 +145,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   // position order only)
   int kend = kv_len;
   if (causal && window <= 0) kend = min(kend, q_offset + min(q0 + kBQ, sq));
-  const float sqrt_e = sqrtf((float)E);
 
   float m_run[kRowsPerWarp], l_run[kRowsPerWarp];
 #pragma unroll
@@ -142,7 +152,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     m_run[r] = -CUDART_INF_F;
     l_run[r] = 0.f;
   }
-  const int col = t % E, row0 = t / E;
+  const int col = t % EV, row0 = t / EV;
   float acc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
@@ -150,28 +160,43 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     const int nk = min(kBK, kend - k0);
     __syncthreads();
-    for (int i = t; i < kBK * E; i += kThreads) {
-      const int r = i / E, j = i % E;
-      float kv = 0.f, vv = 0.f;
-      if (r < nk) {
-        kv = repro::to_f(kb[(long long)(k0 + r) * kss + j]);
-        vv = repro::to_f(vb[(long long)(k0 + r) * vss + j]);
+    // one pass over both tiles where they are as wide (as two passes,
+    // ptxas spilled at 16 and 64), two where the values are narrower
+    if constexpr (EK == EV) {
+      for (int i = t; i < kBK * EK; i += kThreads) {
+        const int r = i / EK, j = i % EK;
+        float kv = 0.f, vv = 0.f;
+        if (r < nk) {
+          kv = repro::to_f(kb[(long long)(k0 + r) * kss + j]);
+          vv = repro::to_f(vb[(long long)(k0 + r) * vss + j]);
+        }
+        ks[r * (EK + 1) + j] = kv;
+        vs[r * (EV + 1) + j] = vv;
       }
-      ks[r * (E + 1) + j] = kv;
-      vs[r * (E + 1) + j] = vv;
+    } else {
+      for (int i = t; i < kBK * EK; i += kThreads) {
+        const int r = i / EK, j = i % EK;
+        ks[r * (EK + 1) + j] =
+            r < nk ? repro::to_f(kb[(long long)(k0 + r) * kss + j]) : 0.f;
+      }
+      for (int i = t; i < kBK * EV; i += kThreads) {
+        const int r = i / EV, j = i % EV;
+        vs[r * (EV + 1) + j] =
+            r < nk ? repro::to_f(vb[(long long)(k0 + r) * vss + j]) : 0.f;
+      }
     }
     __syncthreads();
     // scores: warp w owns rows w, w+4, ...; lane = key
     float s[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float* krow = ks + lane * (E + 1);
+    const float* krow = ks + lane * (EK + 1);
 #pragma unroll 4
-    for (int j = 0; j < E; ++j) {
+    for (int j = 0; j < EK; ++j) {
       const float kj = krow[j];
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r)
-        s[r] += qs[(warp + kWarps * r) * E + j] * kj;
+        s[r] += qs[(warp + kWarps * r) * EK + j] * kj;
     }
     const long long kpos =
         (window > 0 && lane < nk) ? kv_positions[k0 + lane] : k0 + lane;
@@ -181,7 +206,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const long long qpos = (long long)q_offset + q0 + qi;
       const bool valid = lane < nk && (!causal || qpos >= kpos) &&
                          (window <= 0 || kpos > qpos - window);
-      const float sv = valid ? s[r] / sqrt_e : -CUDART_INF_F;
+      const float sv = valid ? s[r] * scale : -CUDART_INF_F;
       const float m_new = fmaxf(m_run[r], repro::warp_max(sv));
       float p = 0.f, alpha = 1.f;
       if (m_new != -CUDART_INF_F) {  // some key of this row is visible
@@ -199,7 +224,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int qi = row0 + kTPC * r;
       float a = acc[r] * alpha_s[qi];
       for (int kk = 0; kk < nk; ++kk)
-        a += ps[qi * kBK + kk] * vs[kk * (E + 1) + col];
+        a += ps[qi * kBK + kk] * vs[kk * (EV + 1) + col];
       acc[r] = a;
     }
   }
@@ -219,32 +244,33 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = row0 + kTPC * r;
     if (q0 + qi < sq) {
       const float l = l_s[qi];
-      out[(((long long)bi * sq + q0 + qi) * h + hh) * E + col] =
+      out[(((long long)bi * sq + q0 + qi) * h + hh) * EV + col] =
           repro::from_f<T>(l > 0.f ? acc[r] / l : 0.f);
     }
   }
 }
 
-template <typename T, int E>
+template <typename T, int EK, int EV>
 int launch(const void* q, const void* k, const void* v,
            const int* kv_positions, void* out, float* lse, int b, int sq,
            int h, int n,
-           int kv_len, int q_offset, int causal, int window, long long qsb,
-           long long qss, long long qsh, long long ksb, long long kss,
-           long long ksn, long long vsb, long long vss, long long vsn,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<E>();
+           int kv_len, int q_offset, int causal, int window, float scale,
+           long long qsb, long long qss, long long qsh, long long ksb,
+           long long kss, long long ksn, long long vsb, long long vss,
+           long long vsn, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<EK, EV>();
+  static_assert(smem <= 232448, "shared memory of one block");
   // once per instantiation (a thread-safe static), not on every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, EK, EV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_fwd<T, E><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<T, EK, EV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_positions, static_cast<T*>(out), lse, sq,
-      h, n, kv_len, q_offset, causal, window, qsb, qss, qsh, ksb, kss, ksn, vsb,
-      vss, vsn);
+      h, n, kv_len, q_offset, causal, window, scale, qsb, qss, qsh, ksb, kss,
+      ksn, vsb, vss, vsn);
   return cudaGetLastError();
 }
 
@@ -256,28 +282,43 @@ constexpr int kM = 64;    // rows of the M tile: (query position, head)
 constexpr int kN = 64;    // keys per K/V tile
 constexpr int kWG = 128;  // one warpgroup
 
+// a 64-row bf16 tile of width E as TMA writes it (hopper.cuh's layout
+// convention): kAtoms swizzle atoms of 64 rows x kSw bytes
 template <int E>
-struct Tile {
+struct Swz {
   static constexpr int kAtom = E < 64 ? E : 64;  // elements per swizzle row
   static constexpr int kSw = 2 * kAtom;          // swizzle bytes: 32 or 128
   static constexpr int kAtoms = E / kAtom;
   static constexpr uint64_t kLayout =
       kSw == 128 ? repro::kSwizzle128 : repro::kSwizzle32;
-  static constexpr int kBytes = kN * E * 2;  // one Q, K or V tile
-  static constexpr int kStages = E == 128 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kMap =
+      kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr int kBytes = kN * E * 2;
+  static_assert(kSw == 32 || kSw == 128, "e must be 16, 64, 128 or 192");
+  static_assert(E % kAtom == 0, "whole swizzle atoms");
+};
+
+// keys EK wide (Q, K), values EV wide (V, O)
+template <int EK, int EV>
+struct Tile {
+  using QK = Swz<EK>;
+  using VO = Swz<EV>;
+  static constexpr int kPair = QK::kBytes + VO::kBytes;  // a (K, V) stage
+  static constexpr int kStages = EK >= 128 ? 2 : 3;
   static constexpr int kAlign = 1024;        // the 128-byte swizzle period
-  static constexpr size_t kSmem =
-      kAlign + (size_t)kBytes * (1 + 2 * kStages) + 8 * (kStages + 1);
-  static_assert(kM == kN, "Q and K/V tiles share one size");
-  static_assert(kSw == 32 || kSw == 128, "e must be 16, 64 or 128");
+  static constexpr size_t kSmem = kAlign + (size_t)QK::kBytes +
+                                  (size_t)kPair * kStages +
+                                  8 * (kStages + 1);
+  static_assert(kM == kN, "Q and K/V tiles share one row count");
+  static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
 // Shared memory: the Q tile, then kStages (K, V) tile pairs, each tile as
-// kAtoms swizzle atoms of 64 rows x kSw bytes; then the mbarriers (one per
-// stage, one for Q).  Grid (mtiles * nsplit, n, b): block (mt, split)
+// its swizzle atoms; then the mbarriers (one per stage, one for Q): 107,544
+// bytes at (192, 128).  Grid (mtiles * nsplit, n, b): block (mt, split)
 // takes query positions [mt*per_tile, +per_tile) of the g heads of kv head
-// blockIdx.y, over keys [split*chunk, +chunk).
-template <int E>
+// blockIdx.y, over keys [split*chunk, +chunk).  `scale` multiplies q.k.
+template <int EK, int EV>
 __global__ void __launch_bounds__(kWG, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
@@ -287,17 +328,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 float* __restrict__ part_o, float* __restrict__ part_ml,
                 int b, int sq, int h, int n,
                 int kv_len, int q_offset, int causal, int window,
-                int per_tile, int chunk, int nsplit) {
-  using TL = Tile<E>;
+                float scale, int per_tile, int chunk, int nsplit) {
+  using TL = Tile<EK, EV>;
+  using QK = typename TL::QK;
+  using VO = typename TL::VO;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((TL::kAlign - (repro::smem_u32(smem_raw) &
                                              (TL::kAlign - 1))) &
                               (TL::kAlign - 1));
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(base + TL::kBytes * (1 + 2 * TL::kStages));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + QK::kBytes +
+                                               TL::kPair * TL::kStages);
   uint64_t* qbar = bars + TL::kStages;
-  auto k_tile = [&](int s) { return base + TL::kBytes * (1 + 2 * s); };
-  auto v_tile = [&](int s) { return base + TL::kBytes * (2 + 2 * s); };
+  auto k_tile = [&](int s) { return base + QK::kBytes + TL::kPair * s; };
+  auto v_tile = [&](int s) { return k_tile(s) + QK::kBytes; };
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int split = blockIdx.x % nsplit, mt = blockIdx.x / nsplit;
@@ -314,14 +357,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 
   auto load_kv = [&](int j) {  // one thread: tile j into stage j % kStages
     const int s = j % TL::kStages, key0 = k_lo + j * kN;
-    repro::mbar_arrive_expect_tx(&bars[s], 2 * TL::kBytes);
+    repro::mbar_arrive_expect_tx(&bars[s], TL::kPair);
 #pragma unroll
-    for (int a = 0; a < TL::kAtoms; ++a) {
-      repro::tma_load_4d(k_tile(s) + a * kN * TL::kSw, &kmap, &bars[s],
-                         a * TL::kAtom, kvh, key0, bi);
-      repro::tma_load_4d(v_tile(s) + a * kN * TL::kSw, &vmap, &bars[s],
-                         a * TL::kAtom, kvh, key0, bi);
-    }
+    for (int a = 0; a < QK::kAtoms; ++a)
+      repro::tma_load_4d(k_tile(s) + a * kN * QK::kSw, &kmap, &bars[s],
+                         a * QK::kAtom, kvh, key0, bi);
+#pragma unroll
+    for (int a = 0; a < VO::kAtoms; ++a)
+      repro::tma_load_4d(v_tile(s) + a * kN * VO::kSw, &vmap, &bars[s],
+                         a * VO::kAtom, kvh, key0, bi);
   };
   if (t == 0) {
     for (int s = 0; s <= TL::kStages; ++s) repro::mbar_init(&bars[s], 1);
@@ -329,11 +373,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (t == 0 && ntiles > 0) {
-    repro::mbar_arrive_expect_tx(qbar, rows * E * 2);
+    repro::mbar_arrive_expect_tx(qbar, rows * EK * 2);
 #pragma unroll
-    for (int a = 0; a < TL::kAtoms; ++a)
-      repro::tma_load_4d(base + a * kM * TL::kSw, &qmap, qbar,
-                         a * TL::kAtom, kvh * g, p0, bi);
+    for (int a = 0; a < QK::kAtoms; ++a)
+      repro::tma_load_4d(base + a * kM * QK::kSw, &qmap, qbar,
+                         a * QK::kAtom, kvh * g, p0, bi);
     for (int j = 0; j < min(TL::kStages, ntiles); ++j) load_kv(j);
   }
 
@@ -352,12 +396,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     w_hi[i] = causal ? (long long)q_offset + pos : LLONG_MAX;
     w_lo[i] = (long long)q_offset + pos - window;
   }
-  // scores in base-2 units: s * log2(e) / sqrt(E), so that exp(s / sqrt(E)
-  // - m) is one exp2 of the scaled difference (m, too, is kept scaled)
-  const float scale = 1.4426950408889634f / sqrtf((float)E);
-  float o[E / 2];  // the 64 x E accumulator over the warpgroup
+  // scores in base-2 units: s * scale * log2(e), so that exp(s * scale -
+  // m) is one exp2 of the scaled difference (m, too, is kept scaled)
+  const float scale2 = scale * 1.4426950408889634f;
+  float o[EV / 2];  // the 64 x EV accumulator over the warpgroup
 #pragma unroll
-  for (int i = 0; i < E / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < EV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
 
   const uint32_t q_addr = repro::smem_u32(base);
@@ -379,18 +423,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     const uint32_t k_addr = repro::smem_u32(k_tile(s));
     const uint32_t v_addr = repro::smem_u32(v_tile(s));
 
-    // S = Q Kᵀ: E/16 steps of 16 features, 32 bytes into a swizzle row
+    // S = Q Kᵀ: EK/16 steps of 16 features, 32 bytes into a swizzle row
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     repro::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < E / 16; ++kk) {
-      const int a = kk * 16 / TL::kAtom, off = (kk * 16 % TL::kAtom) * 2;
+    for (int kk = 0; kk < EK / 16; ++kk) {
+      const int a = kk * 16 / QK::kAtom, off = (kk * 16 % QK::kAtom) * 2;
       const uint64_t da = repro::wgmma_desc(
-          q_addr + a * kM * TL::kSw + off, 16, 8 * TL::kSw, TL::kLayout);
+          q_addr + a * kM * QK::kSw + off, 16, 8 * QK::kSw, QK::kLayout);
       const uint64_t db = repro::wgmma_desc(
-          k_addr + a * kN * TL::kSw + off, 16, 8 * TL::kSw, TL::kLayout);
+          k_addr + a * kN * QK::kSw + off, 16, 8 * QK::kSw, QK::kLayout);
       repro::wgmma_m64n64k16_ss(sc, da, db, kk > 0);
     }
     repro::wgmma_commit();
@@ -412,7 +456,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
           const long long kp = kpos[2 * c + jj];
           const bool ok = key0 + 8 * c + jj < lim[i] &&
                           (!windowed || (kp > w_lo[i] && kp <= w_hi[i]));
-          const float v = ok ? sc[x] * scale : -CUDART_INF_F;
+          const float v = ok ? sc[x] * scale2 : -CUDART_INF_F;
           sc[x] = v;
           mx = fmaxf(mx, v);
         }
@@ -437,7 +481,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       l_run[i] = l_run[i] * alpha[i] + sum;  // this thread's columns only
     }
 #pragma unroll
-    for (int c = 0; c < E / 8; ++c) {
+    for (int c = 0; c < EV / 8; ++c) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) o[4 * c + x] *= alpha[x >> 1];
     }
@@ -452,13 +496,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       pa[kk][2] = repro::pack_bf16(lo[4], lo[5]);
       pa[kk][3] = repro::pack_bf16(lo[6], lo[7]);
     }
-    // O += P V: V is (key, e), MN-major; 16 keys are 16 swizzle rows
+    // O += P V: V is (key, EV), MN-major; 16 keys are 16 swizzle rows
     repro::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t db =
-          repro::wgmma_desc(v_addr + kk * 16 * TL::kSw, kN * TL::kSw,
-                            8 * TL::kSw, TL::kLayout);
+          repro::wgmma_desc(v_addr + kk * 16 * VO::kSw, kN * VO::kSw,
+                            8 * VO::kSw, VO::kLayout);
       repro::wgmma_m64nNk16_rs(o, pa[kk], db);
     }
     repro::wgmma_commit();
@@ -481,9 +525,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       if (lse != nullptr && (lane & 3) == 0)
         lse[((long long)bi * h + kvh * g + r % g) * sq + pos] =
             l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : -CUDART_INF_F;
-      __nv_bfloat16* orow = out + row * E + col;
+      __nv_bfloat16* orow = out + row * EV + col;
 #pragma unroll
-      for (int c = 0; c < E / 8; ++c) {
+      for (int c = 0; c < EV / 8; ++c) {
         const float a0 = o[4 * c + 2 * i], a1 = o[4 * c + 2 * i + 1];
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
             __floats2bfloat162_rn(l > 0.f ? a0 / l : 0.f,
@@ -491,9 +535,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       }
     } else {
       const long long slot = (long long)split * b * sq * h + row;
-      float* po = part_o + slot * E + col;
+      float* po = part_o + slot * EV + col;
 #pragma unroll
-      for (int c = 0; c < E / 8; ++c)
+      for (int c = 0; c < EV / 8; ++c)
         *reinterpret_cast<float2*>(po + 8 * c) =
             make_float2(o[4 * c + 2 * i], o[4 * c + 2 * i + 1]);
       if ((lane & 3) == 0) {
@@ -506,10 +550,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 // Folds the nsplit partial (O, m, l) of flash_fwd_wgmma (m in base-2
 // units): a block of kWG threads takes kWG / E output rows (b, position,
-// head), thread t column t % E of row t / E.  A split that saw no key of
-// the row has l = 0 and is skipped; a row with no visible key at all
-// outputs 0 (and lse -inf).  With lse, column 0's thread writes the row's
-// natural-log LSE at (b, head, position).
+// head), thread t column t % E of row t / E (E the value width).  A split
+// that saw no key of the row has l = 0 and is skipped; a row with no
+// visible key at all outputs 0 (and lse -inf).  With lse, column 0's
+// thread writes the row's natural-log LSE at (b, head, position).
 template <int E>
 __global__ void __launch_bounds__(kWG)
 flash_combine(const float* __restrict__ part_o,
@@ -543,60 +587,60 @@ flash_combine(const float* __restrict__ part_o,
   }
 }
 
-template <int E>
+template <int EK, int EV>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const int* kv_positions, void* out, float* lse,
                  void* part_o, void* part_ml, int b, int sq, int h, int n,
                  int sk,
                  int kv_len, int q_offset, int causal, int window,
-                 long long qsb, long long qss, long long qsh, long long ksb,
-                 long long kss, long long ksn, long long vsb, long long vss,
-                 long long vsn, int per_tile, int chunk, int nsplit,
-                 cudaStream_t stream) {
-  using TL = Tile<E>;
+                 float scale, long long qsb, long long qss, long long qsh,
+                 long long ksb, long long kss, long long ksn, long long vsb,
+                 long long vss, long long vsn, int per_tile, int chunk,
+                 int nsplit, cudaStream_t stream) {
+  using TL = Tile<EK, EV>;
+  using QK = typename TL::QK;
+  using VO = typename TL::VO;
   const int g = h / n;
   if (per_tile < 1 || per_tile * g > kM || nsplit < 1 || chunk < 1 ||
       chunk % kN != 0 || sk < 1)
     return cudaErrorInvalidValue;
-  const CUtensorMapSwizzle sw =
-      TL::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap qm, km, vm;
-  int err = repro::make_map_4d(&qm, q, {E, h, sq, b}, {1, qsh, qss, qsb},
-                               TL::kAtom, g, per_tile, sw);
+  int err = repro::make_map_4d(&qm, q, {EK, h, sq, b}, {1, qsh, qss, qsb},
+                               QK::kAtom, g, per_tile, QK::kMap);
   if (err == 0)
-    err = repro::make_map_4d(&km, k, {E, n, sk, b}, {1, ksn, kss, ksb},
-                             TL::kAtom, 1, kN, sw);
+    err = repro::make_map_4d(&km, k, {EK, n, sk, b}, {1, ksn, kss, ksb},
+                             QK::kAtom, 1, kN, QK::kMap);
   if (err == 0)
-    err = repro::make_map_4d(&vm, v, {E, n, sk, b}, {1, vsn, vss, vsb},
-                             TL::kAtom, 1, kN, sw);
+    err = repro::make_map_4d(&vm, v, {EV, n, sk, b}, {1, vsn, vss, vsb},
+                             VO::kAtom, 1, kN, VO::kMap);
   if (err != 0) return err;
   // once per instantiation (a thread-safe static), not on every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<EK, EV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)TL::kSmem);
   if (attr != cudaSuccess) return attr;
   const int mtiles = (sq + per_tile - 1) / per_tile;
-  flash_fwd_wgmma<E><<<dim3(mtiles * nsplit, n, b), kWG, TL::kSmem,
-                       stream>>>(
+  flash_fwd_wgmma<EK, EV><<<dim3(mtiles * nsplit, n, b), kWG, TL::kSmem,
+                            stream>>>(
       qm, km, vm, kv_positions, static_cast<__nv_bfloat16*>(out), lse,
       static_cast<float*>(part_o), static_cast<float*>(part_ml), b, sq, h, n,
-      kv_len, q_offset, causal, window, per_tile, chunk, nsplit);
+      kv_len, q_offset, causal, window, scale, per_tile, chunk, nsplit);
   cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess || nsplit == 1) return e2;
   const long long rows_total = (long long)b * sq * h;
-  flash_combine<E><<<(rows_total + kWG / E - 1) / (kWG / E), kWG, 0,
-                     stream>>>(
+  flash_combine<EV><<<(rows_total + kWG / EV - 1) / (kWG / EV), kWG, 0,
+                      stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
       static_cast<__nv_bfloat16*>(out), lse, rows_total, nsplit, sq, h);
   return cudaGetLastError();
 }
 
 // MLA mode: mla.cuh's tile loop over a chunk of queries
-template <typename T, int EK, int EV, bool VK>
+template <typename T, int EK, int EV>
 __global__ void __launch_bounds__(repro_mla::kThreads, 2)
 flash_mla(const repro_mla::Args a) {
   extern __shared__ __align__(16) unsigned char mla_smem[];
-  repro_mla::attend<T, EK, EV, VK>(a, mla_smem);
+  repro_mla::attend<T, EK, EV>(a, mla_smem);
 }
 
 // MLA mode, bf16 absorbed form: mla.cuh's tensor-core tile loop
@@ -613,21 +657,17 @@ flash_mla_combine(const float* part_o, const float* part_ml, T* out,
   repro_mla::combine<T, EV>(part_o, part_ml, out, rows, nsplit);
 }
 
-template <typename T, int EK, int EV, bool VK>
-int launch_mla(const repro_mla::Args& a, cudaStream_t stream) {
-  return repro_mla::launch<T, EK, EV, VK>(
-      flash_mla<T, EK, EV, VK>, flash_mla_combine<T, EV>, a, stream);
-}
-
-
 }  // namespace
 
-// q (b,sq,h,e), k/v (b,sk,n,e): unit stride on e, element strides for the
-// other axes (a cache prefix view is read in place); out (b,sq,h,e)
-// contiguous in q's dtype.  kv_len <= sk keys are visible.  bf16 runs
+// q (b,sq,h,ek), k (b,sk,n,ek), v (b,sk,n,ev): unit stride on the last
+// axis, element strides for the other axes (a cache prefix view is read in
+// place); out (b,sq,h,ev) contiguous in q's dtype.  (ek, ev) is one of
+// (16, 16), (64, 64), (128, 128) and (192, 128) (DeepSeek's naive MLA
+// form); scale multiplies q.k (flash_attention.py passes 1/sqrt(ek) when
+// the caller gives none).  kv_len <= sk keys are visible.  bf16 runs
 // flash_fwd_wgmma with the plan (per_tile, chunk, nsplit) of
 // flash_attention.py::plan; its strides must be multiples of 8 elements
-// and its pointers 16-byte aligned (TMA), and part_o (nsplit,b,sq,h,e) /
+// and its pointers 16-byte aligned (TMA), and part_o (nsplit,b,sq,h,ev) /
 // part_ml (nsplit,b,sq,h,2) are f32 scratch when nsplit > 1.  f32 runs
 // flash_fwd and ignores the plan and the scratch.  window > 0 is the
 // window mode, with kv_positions (sk,) int32.  lse, if not null, is f32
@@ -635,50 +675,54 @@ int launch_mla(const repro_mla::Args& a, cudaStream_t stream) {
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* kv_positions,
     void* out, void* lse, void* part_o, void* part_ml, int dtype, int b,
-    int sq, int h,
-    int n, int sk, int e, int kv_len, int q_offset, int causal, int window,
-    long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksn, long long vsb, long long vss,
-    long long vsn, int per_tile, int chunk, int nsplit, void* stream) {
+    int sq, int h, int n, int sk, int ek, int ev, int kv_len, int q_offset,
+    int causal, int window, float scale, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksn,
+    long long vsb, long long vss, long long vsn, int per_tile, int chunk,
+    int nsplit, void* stream) {
   if (h % n != 0 || window < 0 || (window > 0) != (kv_positions != nullptr))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto kp = static_cast<const int*>(kv_positions);
   auto ls = static_cast<float*>(lse);
   if (dtype == repro::kBF16) {
-#define REPRO_WGMMA(E)                                                      \
-  return launch_wgmma<E>(q, k, v, kp, out, ls, part_o, part_ml, b, sq, h, n, \
-                         sk, kv_len, q_offset, causal, window, qsb, qss,    \
-                         qsh, ksb, kss, ksn, vsb, vss, vsn, per_tile, chunk, \
-                         nsplit, st)
-    if (e == 16) REPRO_WGMMA(16);
-    if (e == 64) REPRO_WGMMA(64);
-    if (e == 128) REPRO_WGMMA(128);
+#define REPRO_WGMMA(EK, EV)                                                 \
+  if (ek == EK && ev == EV)                                                 \
+    return launch_wgmma<EK, EV>(q, k, v, kp, out, ls, part_o, part_ml, b,   \
+                                sq, h, n, sk, kv_len, q_offset, causal,     \
+                                window, scale, qsb, qss, qsh, ksb, kss,     \
+                                ksn, vsb, vss, vsn, per_tile, chunk,        \
+                                nsplit, st);
+    REPRO_WGMMA(16, 16)
+    REPRO_WGMMA(64, 64)
+    REPRO_WGMMA(128, 128)
+    REPRO_WGMMA(192, 128)
 #undef REPRO_WGMMA
   } else if (dtype == repro::kF32) {
-#define REPRO_FLASH(E)                                                      \
-  return launch<float, E>(q, k, v, kp, out, ls, b, sq, h, n, kv_len,        \
-                          q_offset, causal, window, qsb, qss, qsh, ksb, kss, \
-                          ksn, vsb, vss, vsn, st)
-    if (e == 16) REPRO_FLASH(16);
-    if (e == 64) REPRO_FLASH(64);
-    if (e == 128) REPRO_FLASH(128);
+#define REPRO_FLASH(EK, EV)                                                 \
+  if (ek == EK && ev == EV)                                                 \
+    return launch<float, EK, EV>(q, k, v, kp, out, ls, b, sq, h, n, kv_len, \
+                                 q_offset, causal, window, scale, qsb, qss, \
+                                 qsh, ksb, kss, ksn, vsb, vss, vsn, st);
+    REPRO_FLASH(16, 16)
+    REPRO_FLASH(64, 64)
+    REPRO_FLASH(128, 128)
+    REPRO_FLASH(192, 128)
 #undef REPRO_FLASH
   }
   return cudaErrorInvalidValue;
 }
 
-// MLA mode: q (b,sq,h,ek), k (b,sk,n,ek), v (b,sk,n,ev), unit stride on
-// the last axis and element strides for the others, every row 16-byte
-// aligned; out (b,sq,h,ev) contiguous in q's dtype.  kv_len <= sk keys
-// are visible, query i sits at q_offset + i, the mask is causal if asked;
-// scale multiplies q.k (log2(e) is applied here).  The plan (chunk,
-// nsplit) is flash_attention.py::mla_plan's; part_o (nsplit,b,sq,h,ev)
-// and part_ml (nsplit,b,sq,h,2) are f32 scratch when nsplit > 1.  (ek, ev)
-// is (576, 512), the absorbed form, whose values are the keys' first 512
-// columns (v is not read: they come from the K tile), in bf16 on
-// flash_mla_mma (mma = 1, 64 rows a block) and in f32 on flash_mla; or
-// (192, 128), the naive form, v apart, on flash_mla (32 rows a block).
+// MLA mode, the absorbed form: q (b,sq,h,576), k (b,sk,n,576), v the view
+// of k's first 512 columns (not read: the values come from the K tile),
+// unit stride on the last axis and element strides for the others, every
+// row 16-byte aligned; out (b,sq,h,512) contiguous in q's dtype.  kv_len
+// <= sk keys are visible, query i sits at q_offset + i, the mask is causal
+// if asked; scale multiplies q.k (log2(e) is applied here).  The plan
+// (chunk, nsplit) is flash_attention.py::mla_plan's; part_o
+// (nsplit,b,sq,h,512) and part_ml (nsplit,b,sq,h,2) are f32 scratch when
+// nsplit > 1.  bf16 runs flash_mla_mma (mma = 1, 64 rows a block), f32
+// flash_mla.  (DeepSeek's naive form, (192, 128), is repro_flash_attention's.)
 extern "C" int repro_flash_mla(
     const void* q, const void* k, const void* v, void* out, void* part_o,
     void* part_ml, int dtype, int b, int sq, int h, int n, int sk, int ek,
@@ -686,27 +730,19 @@ extern "C" int repro_flash_mla(
     int nsplit, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksn, long long vsb, long long vss,
     long long vsn, int mma, void* stream) {
-  if (kv_len < 0 || kv_len > sk || q_offset < 0)
+  if (kv_len < 0 || kv_len > sk || q_offset < 0 || ek != 576 || ev != 512)
     return cudaErrorInvalidValue;
-  repro_mla::Args a{q, k, v, nullptr, out, static_cast<float*>(part_o),
+  repro_mla::Args a{q, k, nullptr, out, static_cast<float*>(part_o),
                     static_cast<float*>(part_ml), b, sq, h, n, sk, kv_len,
                     q_offset, causal, chunk, nsplit,
                     scale * 1.4426950408889634f, qsb, qss, qsh, ksb, kss,
-                    ksn, vsb, vss, vsn};
+                    ksn};
   auto st = static_cast<cudaStream_t>(stream);
-  const bool absorbed = ek == 576 && ev == 512;
-  if (absorbed && dtype == repro::kBF16 && mma &&
-      chunk % repro_mla::kMmaKeys == 0)
+  if (dtype == repro::kBF16 && mma && chunk % repro_mla::kMmaKeys == 0)
     return repro_mla::launch_rows<__nv_bfloat16, 512>(
         flash_mla_mma, flash_mla_combine<__nv_bfloat16, 512>, a,
         repro_mla::kMmaRows, repro_mla::kMmaSmem, st);
-  if (mma) return cudaErrorInvalidValue;
-  if (absorbed && dtype == repro::kF32)
-    return launch_mla<float, 576, 512, true>(a, st);
-  if (ek == 192 && ev == 128) {
-    if (dtype == repro::kBF16)
-      return launch_mla<__nv_bfloat16, 192, 128, false>(a, st);
-    if (dtype == repro::kF32) return launch_mla<float, 192, 128, false>(a, st);
-  }
-  return cudaErrorInvalidValue;
+  if (mma || dtype != repro::kF32) return cudaErrorInvalidValue;
+  return repro_mla::launch<float, 576, 512>(
+      flash_mla<float, 576, 512>, flash_mla_combine<float, 512>, a, st);
 }

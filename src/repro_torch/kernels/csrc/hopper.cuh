@@ -180,6 +180,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 32, f32) (+)= A (64 x 16, smem) * B (32 x 16, smem)^T, both
+// K-major; scale_d == 0 overwrites D.  With the n64 shape above, the
+// overload set wgmma_m64nNk16_ss picks the width from D's size.
+__device__ __forceinline__ void wgmma_m64nNk16_ss(float (&d)[16],
+                                                  uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F8_AT(d, 0), REPRO_F8_AT(d, 8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64nNk16_ss(float (&d)[32],
+                                                  uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  wgmma_m64n64k16_ss(d, da, db, scale_d);
+}
+
 // D (64 x N, f32) += A (64 x 16 bf16, registers) * B (16 x N, smem), B
 // MN-major (the transpose bit set: its N axis is the contiguous one)
 __device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[8],
@@ -228,6 +251,31 @@ __device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[64],
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : REPRO_F32_AT(d, 0), REPRO_F32_AT(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// m64n192k16: the keys' width of DeepSeek's naive MLA form (dK, dQ)
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[96],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : REPRO_F32_AT(d, 0), REPRO_F32_AT(d, 32), REPRO_F32_AT(d, 64)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

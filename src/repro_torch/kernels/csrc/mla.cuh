@@ -2,19 +2,19 @@
 // (repro/models/mla.py), whose values are narrower than its keys and
 // whose scale is given (1/sqrt(qk_head_dim), not 1/sqrt(e)).
 //
-// Two forms reach it:
-//  * absorbed (every cached prefill chunk and decode step): the 128 query
-//    heads of a token attend over one latent row per key, keys the
-//    576-wide rows [ckv | krope] of the cache, values their first 512
-//    columns, read from the K tile (n = 1, g = 128);
-//  * naive (the forward without a cache): per-head K/V, q·k 192 wide,
-//    v 128 (n = h, g = 1).
+// The absorbed form (every cached prefill chunk and decode step) reaches
+// it: the 128 query heads of a token attend over one latent row per key,
+// keys the 576-wide rows [ckv | krope] of the cache, values their first
+// 512 columns, read from the K tile (n = 1, g = 128).  (The naive form,
+// the forward without a cache, per-head K/V with q·k 192 wide and v 128,
+// is plain GQA attention with n = h: K2's generic route takes it, in
+// flash_attention.cu, with its LSE and its backward.)
 // K1 (decode_attention.cu) runs one query per row over the first
 // lengths[b] keys; K2 (flash_attention.cu) a chunk of sq queries at
 // q_offset + i, causal or not, over the first kv_len keys.  Both run the
-// two tile loops below: attend_mma (bf16, the absorbed form, on the
-// tensor cores: decode_mla_mma, flash_mla_mma) and attend (CUDA cores:
-// f32, and the naive form in either type: decode_mla, flash_mla).
+// two tile loops below: attend_mma (bf16, on the tensor cores:
+// decode_mla_mma, flash_mla_mma) and attend (f32 on the CUDA cores:
+// decode_mla, flash_mla).
 //
 // What bounds it on the H100: at the absorbed decode, bytes (a step
 // reads each 1152-byte latent row once for all 128 heads: about 1 MB at
@@ -26,17 +26,15 @@
 //    block's rows share one position and one causal key range, and each
 //    K row it loads serves all of them.  Keys come in tiles of 32 by
 //    cp.async into padded shared rows (16 bytes of pad: consecutive rows
-//    land on consecutive 16-byte banks); in the absorbed form V is read
-//    from the K tile (its first 512 columns), so a latent row is loaded
-//    once.
+//    land on consecutive 16-byte banks); V is read from the K tile (its
+//    first 512 columns), so a latent row is loaded once.
 //  * attend (32 rows, 256 threads): thread (sr, sc) computes scores of
 //    rows sr, sr + 16 against keys sc, sc + 16, 8 elements a step; the
 //    online softmax (base 2, masking before exp) reduces each row over
 //    its 16 lanes by shuffles and writes the probabilities, in f32, to
 //    shared memory transposed.  P·V: thread (rg, cg) keeps kRM rows x 8
 //    columns of the (32, EV) f32 accumulator in registers (8 rows at EV =
-//    512, 2 at EV = 128), so each V element of a tile is read once by the
-//    block.  attend_mma is described where it is defined.
+//    512), so each V element of a tile is read once by the block.  attend_mma is described where it is defined.
 //  * The key range is split across blocks (chunk keys each; the plan is
 //    kernels/flash_attention.py::mla_plan) when the blocks would leave
 //    the card short of work: the single-token decode has 2 (attend_mma)
@@ -72,33 +70,31 @@ constexpr int kThreads = 256;  // 8 warps
 struct Args {
   const void* q;        // (b, sq, h, EK), strides qsb, qss, qsh
   const void* k;        // (b, sk, n, EK), strides ksb, kss, ksn
-  const void* v;        // (b, sk, n, EV), strides vsb, vss, vsn
   const int* lengths;   // (b,) keys visible per batch row (K1), or null
   void* out;            // (b, sq, h, EV) contiguous, q's type
   float* part_o;        // (nsplit, b·sq·h, EV) when nsplit > 1
   float* part_ml;       // (nsplit, b·sq·h, 2): m (base 2), l
   int b, sq, h, n, sk, kv_len, q_offset, causal, chunk, nsplit;
   float scale;          // the caller's scale times log2(e)
-  long long qsb, qss, qsh, ksb, kss, ksn, vsb, vss, vsn;
+  long long qsb, qss, qsh, ksb, kss, ksn;   // the values: k's first EV
 };
 
-template <typename T, int EK, int EV, bool VK>
+// V is the K tile's first EV columns
+template <typename T, int EK, int EV>
 struct Layout {
   static constexpr int kVec = 16 / sizeof(T);    // elements in 16 bytes
-  static constexpr int kQS = EK + kVec;          // padded row strides
-  static constexpr int kVS = VK ? kQS : EV + kVec;
+  static constexpr int kQS = EK + kVec;          // padded row stride
   static constexpr int kPS = kBM + 4;            // P is [kBK][kPS] f32
   static constexpr size_t kQBytes = (size_t)kBM * kQS * sizeof(T);
   static constexpr size_t kKBytes = (size_t)kBK * kQS * sizeof(T);
-  static constexpr size_t kVBytes = VK ? 0 : (size_t)kBK * kVS * sizeof(T);
   static constexpr size_t kPBytes = (size_t)kBK * kPS * sizeof(float);
   static constexpr size_t kSmem =
-      kQBytes + kKBytes + kVBytes + kPBytes + 3 * kBM * sizeof(float);
+      kQBytes + kKBytes + kPBytes + 3 * kBM * sizeof(float);
   // P·V: thread (rg, cg) owns rows [rg·kRM, +kRM) x columns [cg·8, +8)
   static constexpr int kCG = EV / 8;
   static constexpr int kRG = kThreads / kCG;
   static constexpr int kRM = kBM / kRG;
-  static_assert(EK % 8 == 0 && EV % 8 == 0 && (!VK || EV <= EK), "widths");
+  static_assert(EK % 8 == 0 && EV % 8 == 0 && EV <= EK, "widths");
   static_assert(kThreads % kCG == 0 && kBM % kRG == 0, "value width");
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
@@ -150,18 +146,15 @@ __device__ __forceinline__ void load_tile(T* dst, int stride, int rows,
 
 // Grid (nsplit, ⌈g·sq / kBM⌉, b·n), kThreads threads, Layout::kSmem bytes
 // of dynamic shared memory.
-template <typename T, int EK, int EV, bool VK>
+template <typename T, int EK, int EV>
 __device__ __forceinline__ void attend(const Args& a, unsigned char* smem) {
-  using Lay = Layout<T, EK, EV, VK>;
-  constexpr int kQS = Lay::kQS, kVS = Lay::kVS, kPS = Lay::kPS;
+  using Lay = Layout<T, EK, EV>;
+  constexpr int kQS = Lay::kQS, kPS = Lay::kPS;
   constexpr int kRM = Lay::kRM;
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = reinterpret_cast<T*>(smem + Lay::kQBytes);
-  const T* sV = VK ? sK
-                   : reinterpret_cast<const T*>(smem + Lay::kQBytes +
-                                                Lay::kKBytes);
-  float* sP = reinterpret_cast<float*>(smem + Lay::kQBytes + Lay::kKBytes +
-                                       Lay::kVBytes);
+  const T* sV = sK;
+  float* sP = reinterpret_cast<float*>(smem + Lay::kQBytes + Lay::kKBytes);
   float* sAlpha = sP + kBK * kPS;
   float* sM = sAlpha + kBM;
   float* sL = sM + kBM;
@@ -172,7 +165,6 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem) {
   const int t = threadIdx.x;
   const T* q = static_cast<const T*>(a.q) + bi * a.qsb;
   const T* kb = static_cast<const T*>(a.k) + bi * a.ksb + kvh * a.ksn;
-  const T* vb = static_cast<const T*>(a.v) + bi * a.vsb + kvh * a.vsn;
 
   // the keys the block's rows may see, and this split's share of them
   const int len = a.lengths != nullptr ? max(0, min(a.lengths[bi], a.sk))
@@ -212,10 +204,6 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem) {
     load_tile<T, EK>(sK, kQS, kBK, nk, [&](int r) {
       return kb + (long long)(k0 + r) * a.kss;
     });
-    if (!VK)
-      load_tile<T, EV>(const_cast<T*>(sV), kVS, kBK, nk, [&](int r) {
-        return vb + (long long)(k0 + r) * a.vss;
-      });
     cp_wait();
     __syncthreads();
 
@@ -277,7 +265,7 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem) {
     }
     for (int j = 0; j < nk; ++j) {
       float vf[8], p[kRM];
-      load8(sV + j * kVS + cg * 8, vf);
+      load8(sV + j * kQS + cg * 8, vf);
 #pragma unroll
       for (int r = 0; r < kRM; ++r) p[r] = sP[j * kPS + rg * kRM + r];
 #pragma unroll
@@ -618,11 +606,11 @@ int launch_rows(AttendFn attend_fn, CombineFn<T> combine_fn, const Args& a,
   return cudaGetLastError();
 }
 
-template <typename T, int EK, int EV, bool VK>
+template <typename T, int EK, int EV>
 int launch(AttendFn attend_fn, CombineFn<T> combine_fn, const Args& a,
            cudaStream_t stream) {
   return launch_rows<T, EV>(attend_fn, combine_fn, a, kBM,
-                            Layout<T, EK, EV, VK>::kSmem, stream);
+                            Layout<T, EK, EV>::kSmem, stream);
 }
 
 }  // namespace

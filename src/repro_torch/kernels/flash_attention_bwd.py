@@ -1,17 +1,23 @@
 """K2's backward on Hopper — wrapper of ``csrc/flash_attention_bwd.cu``.
 
 The gradients of K2 (:func:`flash_attention.flash_attention`, no window or
-MLA mode), two passes with no float atomics, so a gradient is the same in
-every run.  The kernels are chosen by input type (:func:`kernel_for`):
+MLA (absorbed) mode) at every (key, value) width pair of ``HEAD_DIMS``:
+(16, 16), (64, 64), (128, 128), and (192, 128) with DeepSeek's scale, the
+naive MLA form.  Two passes with no float atomics, so a gradient is the
+same in every run.  The kernels are chosen by input type
+(:func:`kernel_for`):
 
 * bf16: ``flash_bwd_prep`` (each query row's LSE, D = rowsum(dO ⊙ O) and
   key limit, in the packed (position, head) row order of the query
   tiles), ``flash_bwd_dkdv_wgmma`` (a block per (b, kv head, 64 keys),
-  walking the query tiles of the g heads) and ``flash_bwd_dq_wgmma`` (a
-  block per (b, kv head, 64-row query tile, key split)), every product
-  on the tensor cores by ``wgmma`` with tiles by TMA; where a pass's
-  blocks are few, :func:`wgmma_plan` splits its range and
-  ``flash_bwd_sum`` adds the f32 partials in split order.
+  walking the query tiles of the g heads; at (192, 128) two consumer
+  warpgroups, each on half of every query tile, whose dK/dV sums are
+  added through shared memory in a fixed order, so that no thread holds
+  more than 192 accumulators) and ``flash_bwd_dq_wgmma`` (a block per (b,
+  kv head, 64-row query tile, key split)), every product on the tensor
+  cores by ``wgmma`` with tiles by TMA; where a pass's blocks are few,
+  :func:`wgmma_plan` splits its range and ``flash_bwd_sum`` adds the f32
+  partials in split order.
 * f32: ``flash_bwd_delta``, ``flash_bwd_dkdv`` (a block per (b, query
   head, 64 keys)) and ``flash_bwd_dq`` (split by :func:`plan`), CUDA-core
   FMAs (``wgmma`` has no full-f32 mode); ``flash_bwd_sum`` adds the g
@@ -28,15 +34,21 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import I, P, require
+from repro_torch.kernels._build import F, I, P, require
 
-HEAD_DIMS = (16, 64, 128)
+# (key, value) widths of K2's generic route, forward and backward (the
+# forward imports them from here): values as wide as keys, and DeepSeek's
+# naive MLA form (q·k over nope 128 + rope 64, values of 128)
+NAIVE_MLA = (192, 128)
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), NAIVE_MLA)
 TILE = 64               # query rows and keys of a tile
 SMS = 132               # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_TILES = 2     # tiles a split must have
 ROW_INFO = 4            # f32-sized words of a query row's data (RowInfo)
-_SIG = {"repro_flash_attention_bwd": [P] * 12 + [I] * 11 + [P],
-        "repro_flash_attention_bwd_wgmma": [P] * 12 + [I] * 13 + [P]}
+_SIG = {"repro_flash_attention_bwd": [P] * 12 + [I] * 10 + [F] + [I] * 2
+        + [P],
+        "repro_flash_attention_bwd_wgmma": [P] * 12 + [I] * 10 + [F]
+        + [I] * 4 + [P]}
 
 launches = _build.LaunchCounter()
 
@@ -44,25 +56,28 @@ launches = _build.LaunchCounter()
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool,
-                        q_offset: int = 0, kv_len: Optional[int] = None
+                        q_offset: int = 0, kv_len: Optional[int] = None,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, o, do (b, sq, h, e), k, v (b, sk, n, e) with h % n == 0, one
-    dtype (bf16 or f32); lse f32 (b, h, sq), the forward's -> (dq, dk, dv)
-    in the inputs' dtype.  Query i sits at ``q_offset + i``; keys at or
-    past ``kv_len`` are masked."""
+    """q (b, sq, h, e), o, do (b, sq, h, e_v), k (b, sk, n, e), v (b, sk,
+    n, e_v) with h % n == 0 and (e, e_v) in ``HEAD_DIMS``, one dtype (bf16
+    or f32); lse f32 (b, h, sq), the forward's; ``scale`` the forward's
+    (else 1/sqrt(e)) -> (dq, dk, dv) in the inputs' dtype.  Query i sits
+    at ``q_offset + i``; keys at or past ``kv_len`` are masked."""
     _build.check_cuda("flash_attention_bwd", [q, k, v, o, do, lse])
-    require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape
-            and o.shape == q.shape and do.shape == q.shape,
+    require(q.dim() == 4 and k.dim() == 4 and v.shape[:3] == k.shape[:3]
+            and o.shape == do.shape == q.shape[:3] + v.shape[3:],
             f"flash_attention_bwd: bad shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, o {tuple(o.shape)}, "
             f"do {tuple(do.shape)}")
     b, sq, h, e = q.shape
     kb, sk, n, ke = k.shape
+    ev = v.shape[-1]
     kv_len = sk if kv_len is None else int(kv_len)
     require(kb == b and ke == e and h % n == 0 and sq >= 1 and sk >= 1,
             f"flash_attention_bwd: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    require(e in HEAD_DIMS, f"flash_attention_bwd: head dim {e} not in "
-            f"{HEAD_DIMS}")
+    require((e, ev) in HEAD_DIMS, f"flash_attention_bwd: (key, value) "
+            f"widths ({e}, {ev}) not in {HEAD_DIMS}")
     require(0 <= kv_len <= sk and q_offset >= 0,
             f"flash_attention_bwd: kv_len {kv_len} / q_offset {q_offset} "
             f"out of range for sk={sk}")
@@ -76,25 +91,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, do, lse = (_aligned(t.contiguous())
                            for t in (q, k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scale = e ** -0.5 if scale is None else float(scale)
     f32 = dict(dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention_bwd", _SIG)
     if kernel_for(q.dtype)[0] == "flash_bwd_dkdv_wgmma":
         p = wgmma_plan(b, sq, h, n, sk, kv_len, causal, q_offset)
         info = torch.empty((b, n, p.mtiles * TILE, ROW_INFO), **f32)
-        part_kv = torch.empty((2, p.kv_nsplit, b, sk, n, e), **f32) \
-            if p.kv_nsplit > 1 else None
+        part_kv = torch.empty((p.kv_nsplit * b * sk * n * (e + ev),),
+                              **f32) if p.kv_nsplit > 1 else None
         part_q = torch.empty((p.nsplit, b, sq, h, e), **f32) \
             if p.nsplit > 1 else None
         rc = lib.repro_flash_attention_bwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), info.data_ptr(), _build.ptr(part_kv),
-            _build.ptr(part_q), b, sq, h, n, sk, e, kv_len, q_offset,
-            int(causal), p.per_tile, p.kv_nsplit, p.chunk, p.nsplit,
+            _build.ptr(part_q), b, sq, h, n, sk, e, ev, kv_len, q_offset,
+            int(causal), scale, p.per_tile, p.kv_nsplit, p.chunk, p.nsplit,
             _build.stream_ptr(q))
     else:
         delta = torch.empty((b, h, sq), **f32)
-        part_kv = torch.empty((2, b, sk, h, e), **f32) if h > n else None
+        part_kv = torch.empty((b * sk * h * (e + ev),), **f32) if h > n \
+            else None
         chunk, nsplit = plan(b, sq, h, kv_len, causal, q_offset)
         part_q = torch.empty((nsplit, b, sq, h, e), **f32) if nsplit > 1 \
             else None
@@ -102,8 +119,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _build.ptr(part_kv),
-            _build.ptr(part_q), b, sq, h, n, sk, e, kv_len, q_offset,
-            int(causal), chunk, nsplit, _build.stream_ptr(q))
+            _build.ptr(part_q), b, sq, h, n, sk, e, ev, kv_len, q_offset,
+            int(causal), scale, chunk, nsplit, _build.stream_ptr(q))
     _build.check(lib, rc, "flash_attention_bwd")
     launches.add()
     return dq, dk, dv
@@ -182,18 +199,27 @@ def plan(b: int, sq: int, h: int, kv_len: int, causal: bool,
     return per * TILE, nsplit
 
 
-def flops(q: torch.Tensor, kv_len: int, causal: bool, q_offset: int) -> int:
-    """The five products over the visible pairs (S = Q·Kᵀ recomputed,
-    dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K, dK = dSᵀ·Q), 2 flops a
-    multiply-add."""
+def flops(q: torch.Tensor, kv_len: int, causal: bool, q_offset: int,
+          ev: Optional[int] = None) -> int:
+    """The five products over the visible pairs, 2 flops a multiply-add:
+    S = Q·Kᵀ recomputed, dQ = dS·K and dK = dSᵀ·Q over q's width e,
+    dP = dO·Vᵀ and dV = Pᵀ·dO over the value width ``ev`` (else e):
+    2·pairs·h·b·(3·e + 2·ev)."""
     from repro_torch.kernels.flash_attention import visible_pairs
     b, sq, h, e = q.shape
-    return 10 * b * h * e * visible_pairs(sq, kv_len, causal, q_offset)
+    ev = e if ev is None else ev
+    return 2 * b * h * (3 * e + 2 * ev) * visible_pairs(sq, kv_len, causal,
+                                                        q_offset)
 
 
-def bytes_moved(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> int:
+def bytes_moved(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                v: Optional[torch.Tensor] = None) -> int:
     """Each input read once (q, k, v, o, do, lse) and each gradient
-    written once (dq, dk, dv)."""
+    written once (dq, dk, dv); o, do and v as wide as ``v`` (else k)."""
+    v = k if v is None else v
+    ev = v.shape[-1]
     qb = q.numel() * q.element_size()
+    ob = q.numel() // q.shape[-1] * ev * q.element_size()
     kb = k.numel() * k.element_size()
-    return 4 * qb + 4 * kb + lse.numel() * lse.element_size()
+    vb = v.numel() * v.element_size()
+    return 2 * (qb + ob + kb + vb) + lse.numel() * lse.element_size()

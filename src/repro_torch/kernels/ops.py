@@ -7,12 +7,15 @@ does not take.  There is no fallback from one to the other.
 
 Gradients: on the CPU the plain versions are differentiated by
 autograd.  On the card, when grad mode is on and an input requires a
-gradient, ``flash_attention`` (no window or MLA mode) runs
+gradient, ``flash_attention`` with no window and outside MLA mode (every
+pair of ``flash_attention.HEAD_DIMS``, DeepSeek's naive MLA form at keys
+192, values 128 with its ``scale`` included) runs
 ``flash_attention.FlashAttentionFn``, whose backward is K2's backward
 kernel, and ``ssd_chunk`` runs ``ssd_chunk.SsdChunkFn``, whose backward
 is K5's backward kernel; every other kernel call raises a
-``RuntimeError`` naming the kernel (K1, K3, K4, K2's window and MLA
-modes): their outputs carry no ``grad_fn``, so a gradient would silently
+``RuntimeError`` naming the kernel (K1, K3, K4, K2's window mode and its
+MLA mode, the absorbed form over a latent cache, which no training path
+runs): their outputs carry no ``grad_fn``, so a gradient would silently
 stop at them.  Under ``no_grad`` nothing is guarded.
 """
 from __future__ import annotations
@@ -146,11 +149,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     if _on_card(q):
-        mla = scale is not None or v.shape[-1] != k.shape[-1]
+        mla = _flash.is_mla(k, v, scale)
         if window == 0 and kv_positions is None and not mla:
             if _wants_grad(q, k, v):
                 return _flash.FlashAttentionFn.apply(q, k, v, causal,
-                                                     q_offset, kv_len)
+                                                     q_offset, kv_len,
+                                                     scale)
         else:
             _no_backward(f"flash_attention (K2) in "
                          f"{'MLA' if mla else 'window'} mode", q, k, v)

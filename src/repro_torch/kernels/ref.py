@@ -125,25 +125,31 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             q_offset: int = 0,
-                            kv_len: Optional[int] = None
+                            kv_len: Optional[int] = None,
+                            scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`flash_attention_ref` and each query row's log-sum-exp of its
-    visible scaled scores, f32 (b, h, sq) in natural-log units (-inf for a
-    row with no visible key): what K2 writes for its backward."""
+    """:func:`flash_attention_ref` (v may be narrower than k, as in the
+    naive MLA form) and each query row's log-sum-exp of its visible
+    scores times ``scale`` (else 1/sqrt(e)), f32 (b, h, sq) in natural-log
+    units (-inf for a row with no visible key): what K2 writes for its
+    backward."""
     out = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                              kv_len=kv_len)
-    scores = _masked_scores(q, k, causal, q_offset, kv_len)
+                              kv_len=kv_len, scale=scale)
+    scores = _masked_scores(q, k, causal, q_offset, kv_len, scale)
     b, n, g, sq, _ = scores.shape
     lse = torch.logsumexp(scores, dim=-1).reshape(b, n * g, sq)
     return out, lse
 
 
-def _masked_scores(q, k, causal, q_offset, kv_len):
-    """f32 scores (b, n, g, sq, sk) scaled by 1/sqrt(e), -inf where the
-    key is masked (causal at ``q_offset``, or at or past ``kv_len``)."""
+def _masked_scores(q, k, causal, q_offset, kv_len, scale=None):
+    """f32 scores (b, n, g, sq, sk) times ``scale`` (else 1/sqrt(e)),
+    -inf where the key is masked (causal at ``q_offset``, or at or past
+    ``kv_len``)."""
     from repro_torch.models.layers import _gqa_scores
     sq, sk = q.shape[1], k.shape[1]
-    scores = _gqa_scores(q, k) / math.sqrt(q.shape[-1])
+    scores = _gqa_scores(q, k)
+    scores = (scores / math.sqrt(q.shape[-1]) if scale is None
+              else scores * scale)
     qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(sk, device=q.device)[None]
     mask = kpos < (sk if kv_len is None else kv_len)
@@ -156,13 +162,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, *,
                             causal: bool, q_offset: int = 0,
-                            kv_len: Optional[int] = None
+                            kv_len: Optional[int] = None,
+                            scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The gradients of K2 (no window or MLA mode), step by step as K2's
-    backward computes them, in f32, cast to the inputs' dtype: q, o, do
-    (b, sq, h, e), k, v (b, sk, n, e), lse (b, h, sq) f32 from the forward
-    -> (dq, dk, dv)::
+    backward computes them, in f32, cast to the inputs' dtype: q (b, sq,
+    h, e), o, do (b, sq, h, e_v), k (b, sk, n, e), v (b, sk, n, e_v), lse
+    (b, h, sq) f32 from the forward, ``scale`` the forward's (else
+    1/sqrt(e)) -> (dq, dk, dv)::
 
         P  = exp(S·scale - lse)        (0 where masked)
         dV = Pᵀ·dO,   dP = dO·Vᵀ,   dS = P ⊙ (dP - rowsum(dO ⊙ O))
@@ -170,16 +178,16 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
     dK and dV summed over the g query heads of each kv head."""
     b, sq, h, e = q.shape
-    sk, n = k.shape[1], k.shape[2]
+    sk, n, ev = k.shape[1], k.shape[2], v.shape[-1]
     g = h // n
-    scale = 1.0 / math.sqrt(e)
+    scale = 1.0 / math.sqrt(e) if scale is None else scale
     f = [t.float() for t in (q, k, v, o, do)]
     qf, kf, vf, of, dof = f
-    s = _masked_scores(q, k, causal, q_offset, kv_len)     # (b,n,g,sq,sk)
+    s = _masked_scores(q, k, causal, q_offset, kv_len, scale)  # (b,n,g,q,k)
     ls = lse.float().reshape(b, n, g, sq, 1)
     p = torch.exp(s - ls)              # masked: exp(-inf) = 0
     p = torch.where(torch.isnan(p), 0.0, p)   # a row with no visible key
-    do5 = dof.reshape(b, sq, n, g, e)
+    do5 = dof.reshape(b, sq, n, g, ev)
     q5 = qf.reshape(b, sq, n, g, e)
     dv = torch.einsum("bngqk,bqnge->bkne", p, do5)
     dp = torch.einsum("bqnge,bkne->bngqk", do5, vf)

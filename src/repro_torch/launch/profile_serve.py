@@ -9,6 +9,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path xlstm-engine
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-hybrid
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-moe
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-parts
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
@@ -40,7 +41,11 @@ synthetic_data``: a run is ``TRAIN_PROFILE_STEPS`` steps
 (``train_runner``), so its kernel table counts K2's backward too.
 ``--path train-hybrid`` does the same with zamba2-1.2b whole on one
 fixed 4 x 512 batch (two chunks of 256 a row), whose table counts K5's
-backward and K2's.
+backward and K2's.  ``--path train-moe`` trains deepseek-v2-236b at every
+width (bf16, its remat "full") with its depth cut to ``MOE_LAYERS`` (the
+first-k dense block and one MoE block) and its routed experts to
+``MOE_EXPERTS`` (:func:`moe_train_config`) on one fixed 2 x 512 batch;
+its attention is MLA's naive form, K2 at keys 192, values 128.
 ``--path train-parts`` is not profiled: for each remat policy ("dots",
 "none", "full") it times the parts of a step of the same model on the
 same batch, each alone between two syncs (``train_step_parts``), and
@@ -107,8 +112,18 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PROFILE_STEPS = \
 # batch, two chunks of 256 a row, so the state between them carries a
 # gradient
 HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ = "zamba2-1.2b", 4, 512
+# the moe family's train path: deepseek-v2-236b at every width on one
+# fixed 2 x 512 batch, with two cuts.  Depth: first_k_dense + 1 = 2
+# layers, one dense and one MoE.  Routed experts: 64 of 160; with all
+# 160 the weights, gradients and AdamW's f32 moments of the two layers
+# take 5.36 B parameters x 12 bytes = 64 GB before AdamW's per-leaf f32
+# temporaries (5 GB each for the 160 x 5120 x 1536 expert leaf); at 64
+# the model is 3.09 B parameters, 37 GB, and 2 GB a temporary
+MOE_ARCH, MOE_BATCH, MOE_SEQ = "deepseek-v2-236b", 2, 512
+MOE_LAYERS, MOE_EXPERTS = 2, 64
 TRAIN_PATHS = {"train": (TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
-               "train-hybrid": (HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ)}
+               "train-hybrid": (HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ),
+               "train-moe": (MOE_ARCH, MOE_BATCH, MOE_SEQ)}
 
 # the port's own kernels, by their __global__ names
 PORT_KERNELS = tuple(s for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)
@@ -328,19 +343,38 @@ def cross_runner(path: str, dev: torch.device) -> Callable[[], dict]:
     return run
 
 
+def moe_train_config():
+    """deepseek-v2-236b at every width, ``MOE_LAYERS`` layers (the
+    first-k dense block, then MoE) of ``MOE_EXPERTS`` routed experts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    return dataclasses.replace(
+        cfg, num_layers=MOE_LAYERS,
+        moe=dataclasses.replace(cfg.moe, num_experts=MOE_EXPERTS))
+
+
+def train_config(dev: torch.device, path: str = "train"):
+    """The model of a train path: at full width on the card (the moe
+    path cut as :func:`moe_train_config` says), reduced on the CPU."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(TRAIN_PATHS[path][0])
+    if dev.type != "cuda":
+        return reduced(cfg)
+    return moe_train_config() if path == "train-moe" else cfg
+
+
 def train_runner(dev: torch.device,
                  path: str = "train") -> Callable[[], dict]:
-    """-> run(): TRAIN_PROFILE_STEPS AdamW steps of ``TRAIN_PATHS[path]``'s
-    model (full width, or reduced on the CPU) on its one fixed batch; the
-    model and its state persist across runs."""
-    from repro_torch.configs import get_config, reduced
+    """-> run(): TRAIN_PROFILE_STEPS AdamW steps of :func:`train_config`'s
+    model on its path's one fixed batch; the model and its state persist
+    across runs."""
     from repro_torch.launch.train import synthetic_data
     from repro_torch.training import AdamWConfig, TrainConfig
     from repro_torch.training import make_train_step
-    arch, b, seq = TRAIN_PATHS[path]
-    cfg = get_config(arch)
-    if dev.type != "cuda":
-        cfg = reduced(cfg)
+    _, b, seq = TRAIN_PATHS[path]
+    cfg = train_config(dev, path)
     init, step = make_train_step(cfg, TrainConfig(
         optimizer=AdamWConfig(lr=1e-3, warmup_steps=1)), dev)
     state = list(init(18))

@@ -736,16 +736,29 @@ def test_mla_flash_kernel_absorbed_forced_splits(cuda, nsplit, dtype):
 @pytest.mark.parametrize("nsplit", [None, 2])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_mla_flash_kernel_naive_matches_plain(cuda, b, sq, h, causal, nsplit,
-                                              dtype):
-    """K2's MLA mode, naive: MHA (n = h) with q·k 192 wide and values of
-    128, the plan's split and a forced one."""
+                                              dtype, monkeypatch):
+    """DeepSeek's naive form, MHA (n = h) with q·k 192 wide, values of 128
+    and the scale, on K2's generic route (flash_fwd_wgmma<192,128> in
+    bf16, flash_fwd in f32): the plan's split and a forced one of the key
+    range (flash_combine over 128-wide values) where it has two tiles."""
     from repro_torch.kernels import flash_attention as k2
     rng = np.random.default_rng(42)
     q, k = (_dev(rng, (b, sq, h, 192), dtype, cuda) for _ in range(2))
     v = _dev(rng, (b, sq, h, 128), dtype, cuda)
-    got = k2.run_mla(q, k, v, causal=causal, scale=MLA_SCALE, nsplit=nsplit)
+    if nsplit is not None:
+        plan = k2.plan
+
+        def forced(*a, **kw):
+            per_tile, mtiles, chunk, _ = plan(*a, **kw)
+            tiles = -(-sq // k2.KEY_TILE)
+            per = -(-tiles // min(nsplit, tiles))
+            return per_tile, mtiles, per * k2.KEY_TILE, -(-tiles // per)
+        monkeypatch.setattr(k2, "plan", forced)
+    before = k2.mla_launches.count
+    got = k2.flash_attention(q, k, v, causal=causal, scale=MLA_SCALE)
     want = ref.flash_attention_ref(q, k, v, causal=causal, scale=MLA_SCALE)
     torch.cuda.synchronize()
+    assert k2.mla_launches.count == before      # not the MLA mode
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
@@ -956,8 +969,8 @@ def test_reduced_train_step_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_on_the_card(cuda):
-    """K1, K3, K4 and K2's window and MLA modes refuse an input that
-    requires a gradient under grad mode (their outputs carry none), naming
+    """K1, K3, K4 and K2's window and MLA (absorbed) modes refuse an input
+    that requires a gradient under grad mode (their outputs carry none), naming
     the kernel; under no_grad the same calls run.  (K5 carries a gradient:
     test_ssd_chunk_fn_gradients_on_the_card.)"""
     from repro_torch.kernels import ops
@@ -977,9 +990,11 @@ def test_kernels_without_a_backward_raise_on_the_card(cuda):
             dev(1, 8, 4, 64), dev(1, 32, 2, 64), dev(1, 32, 2, 64),
             q_offset=24, window=16,
             kv_positions=torch.arange(32, dtype=torch.int32, device=cuda)),
-        "flash_attention (K2) in MLA mode": lambda: ops.flash_attention(
-            dev(1, 8, 4, 192), dev(1, 8, 4, 192), dev(1, 8, 4, 128),
-            scale=192 ** -0.5),
+        # the absorbed form (the naive one, 192/128, has a backward)
+        "flash_attention (K2) in MLA mode": lambda: (
+            lambda lat: ops.flash_attention(
+                dev(1, 8, 4, 576), lat, lat[..., :512], q_offset=24,
+                scale=192 ** -0.5))(dev(1, 32, 1, 576)),
         "topk_retrieval (K3)": lambda: ops.topk_retrieval(
             dev(2, 64), dev(128, 64, grad=False), 4),
         "int8_matmul (K4)": lambda: ops.int8_matmul(
@@ -992,6 +1007,118 @@ def test_kernels_without_a_backward_raise_on_the_card(cuda):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# -- DeepSeek's naive MLA form on the generic route, with its backward ---------
+
+# b, sq, h (= n), causal: keys 192, values 128, the scale 1/sqrt(192),
+# sk = sq keys from position 0, except at sq 1: there the query is the
+# last of 150 positions (q_offset 149).  (One query over one key has P = 1,
+# so dS = P ⊙ (dP - D) and with it the exact dq and dk are 0: both
+# versions return rounding noise there, nothing to compare.)
+NAIVE_CASES = [(2, sq, h, True) for h in (8, 128) for sq in (1, 77, 150, 512)]
+NAIVE_CASES.append((2, 150, 8, False))
+NAIVE_SK = 150        # the keys a single query sees
+
+
+def _naive_args(rng, b, sq, h, dtype, device):
+    """q, k, v, dO and the mask of a NAIVE_CASES shape."""
+    sk = NAIVE_SK if sq == 1 else sq
+    q = _dev(rng, (b, sq, h, 192), dtype, device)
+    k = _dev(rng, (b, sk, h, 192), dtype, device)
+    v = _dev(rng, (b, sk, h, 128), dtype, device)
+    do = _dev(rng, (b, sq, h, 128), dtype, device)
+    return q, k, v, do, dict(q_offset=sk - sq, scale=MLA_SCALE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,causal", NAIVE_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_naive_mla_forward_and_backward_match_plain(cuda, b, sq, h, causal,
+                                                    dtype):
+    """K2's forward with its LSE and K2's backward at (192, 128) with
+    DeepSeek's scale (bf16 on flash_fwd_wgmma and the wgmma backward, two
+    warpgroups in its dK/dV pass; f32 on the CUDA cores): the output
+    within the forward's limit, the LSE within atol 1e-4, rtol 1e-5, and
+    dq, dk, dv within the backward's (``_bwd_tol``) of the plain
+    versions; no gradient all 0."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import flash_attention_bwd as kb
+    rng = np.random.default_rng(66)
+    q, k, v, do, mask = _naive_args(rng, b, sq, h, dtype, cuda)
+    mask["causal"] = causal
+    o, lse = k2.flash_attention(q, k, v, return_lse=True, **mask)
+    want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, **mask)
+    got = kb.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **mask)
+    torch.cuda.synchronize()
+    assert o.shape == (b, sq, h, 128) and lse.shape == (b, h, sq)
+    np.testing.assert_allclose(_f32(o), _f32(want_o), **_tol(dtype))
+    np.testing.assert_allclose(_f32(lse), _f32(want_lse), atol=1e-4,
+                               rtol=1e-5)
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == DTYPES[dtype] and g_.shape == w.shape
+        assert float(g_.float().abs().max()) > 0, name
+        np.testing.assert_allclose(_f32(g_), _f32(w),
+                                   **_bwd_tol(dtype, _f32(w)), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,causal", [NAIVE_CASES[i]
+                                           for i in (2, 7, 8)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_naive_mla_backward_runs_are_bit_equal(cuda, b, sq, h, causal,
+                                               dtype):
+    """Two runs of K2's backward at (192, 128) give the same bits: the two
+    dK/dV warpgroups' sums are added in a fixed order, with no float
+    atomics."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import flash_attention_bwd as kb
+    rng = np.random.default_rng(67)
+    q, k, v, do, mask = _naive_args(rng, b, sq, h, dtype, cuda)
+    mask["causal"] = causal
+    o, lse = k2.flash_attention(q, k, v, return_lse=True, **mask)
+    first = kb.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    second = kb.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert float(a.float().abs().max()) > 0, name
+        assert torch.equal(a.view(torch.uint8), b_.view(torch.uint8)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_published_mla_train_step_card_matches_cpu(cuda, arch):
+    """One train step of a small f32 DeepSeek at its published MLA widths
+    (``published_mla_config``: 8 heads, v3's MTP head included) on the
+    card, K2 at (192, 128) and its backward once an attention block,
+    against the CPU plain path from the same weights: the loss within
+    1e-4 relative, every gradient within 2e-5 + 1e-4·|want|."""
+    import copy
+
+    from repro_torch.kernels import flash_attention_bwd as kb
+    from repro_torch.launch.profile_serve import published_mla_config
+    from repro_torch.models import build_model, lm
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = published_mla_config(arch)
+    cpu = build_model(cfg, "cpu").init(3, trainable=True)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(68).integers(
+        0, cfg.vocab_size, (2, 48)))
+    out = {}
+    before = kb.launches.count
+    for p in (cpu, gpu):
+        t = toks.to(p.embed.device)
+        out[p.embed.device.type] = value_and_grad(
+            lambda m, b: lm.loss_fn(m, cfg, b), p,
+            {"tokens": t, "labels": t})
+    assert kb.launches.count - before == cfg.num_layers + cfg.mtp_depth
+    (lc, _), gc_ = out["cpu"]
+    (lg, _), gg = out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    for name, w in gc_.items():
+        np.testing.assert_allclose(_f32(gg[name]), _f32(w), atol=2e-5,
+                                   rtol=1e-4, err_msg=name)
 
 
 # -- K5's backward (the hybrid family's training) -------------------------------

@@ -819,12 +819,13 @@ def test_ssd_mma_plan_fits_shared_memory_and_fills_the_card():
     (1, 1, 128, 923, (32, 29)),     # deepseek decode: 4 blocks of 128 heads
     (1, 1, 128, 64, (32, 2)),
     (1, 1, 128 * 128, 900, (928, 1)),   # a 128-token prefill chunk
-    (1, 128, 150, 150, (160, 1)),   # the naive forward, n = h = 128
-    (1, 8, 150, 150, (32, 5)),      # the small card check, 8 heads
+    (1, 128, 150, 150, (160, 1)),   # many kv heads: no split
+    (1, 8, 150, 150, (32, 5)),      # few kv heads: split
 ])
 def test_mla_plan_at_path_shapes(b, n, rows, keys, want):
     """Splits of whole key tiles cover the key range, only while the
-    b·n·⌈rows/32⌉ blocks leave the card under two a SM."""
+    b·n·⌈rows/32⌉ blocks leave the card under two a SM (the plan knows no
+    widths: the absorbed form's n = 1 and the rest alike)."""
     from repro_torch.kernels import flash_attention as k2
     chunk, nsplit = k2.mla_plan(b, n, rows, keys)
     assert (chunk, nsplit) == want
@@ -841,12 +842,22 @@ def test_mla_plan_at_path_shapes(b, n, rows, keys, want):
 def test_mla_kernel_is_chosen_by_type_widths_and_layout():
     """The tensor cores take the bf16 absorbed form, whose plan targets
     one 64-row block an SM: a 128-token chunk's 256 blocks are not split,
-    a 16-token one's 32 are."""
+    a 16-token one's 32 are.  f32 runs the CUDA cores.  The naive form
+    (q·k 192) is no MLA mode: the generic route takes it, with its scale,
+    and the MLA kernel choice refuses it."""
     from repro_torch.kernels import flash_attention as k2
     assert k2.mla_kernel_for(torch.bfloat16, 576) == "flash_mla_mma"
-    for args in ((torch.float32, 576), (torch.bfloat16, 192),
-                 (torch.float32, 192)):
-        assert k2.mla_kernel_for(*args) == "flash_mla"
+    assert k2.mla_kernel_for(torch.float32, 576) == "flash_mla"
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="absorbed"):
+            k2.mla_kernel_for(dt, 192)
+    lat = torch.zeros(1, 40, 1, 576)
+    naive = (torch.zeros(1, 40, 8, 192), torch.zeros(1, 40, 8, 128))
+    assert k2.is_mla(lat, lat[..., :512], 0.07)
+    assert not k2.is_mla(*naive, 0.07) and not k2.is_mla(*naive, None)
+    assert k2.is_mla(naive[0], naive[0], 0.07)      # a scale off the pair
+    assert not k2.is_mla(naive[1], naive[1], None)
+    assert k2.NAIVE_MLA in k2.HEAD_DIMS and k2.MLA_DIMS == ((576, 512),)
     assert k2.mla_plan(1, 1, 128 * 128, 900, kernel="flash_mla_mma") == \
         (928, 1)
     assert k2.mla_plan(1, 1, 16 * 128, 400, kernel="flash_mla_mma") == \
@@ -880,12 +891,14 @@ def test_mla_bytes_count_a_latent_row_once():
     assert k2.mla_bytes_moved(q2, lat, lat[..., :512], 300, causal=True,
                               q_offset=296) == \
         4 * 128 * (576 + 512) * 2 + 300 * 576 * 2
-    # the naive form's values are a tensor of their own
+    # the naive form (the generic route) reads its values apart: keys and
+    # values once each, q·k over 192 and p·v over 128
     qn = torch.zeros(1, 4, 8, 192, dtype=torch.bfloat16)
     kn = torch.zeros(1, 300, 8, 192, dtype=torch.bfloat16)
-    vn = torch.zeros(1, 300, 8, 128, dtype=torch.bfloat16)
-    assert k2.mla_bytes_moved(qn, kn, vn, 300, causal=False) == \
+    assert k2.bytes_moved(qn, kn, 300, causal=False, ev=128) == \
         4 * 8 * (192 + 128) * 2 + 300 * 8 * (192 + 128) * 2
+    assert k2.flops(qn, 300, False, 0, ev=128) == \
+        2 * 8 * (192 + 128) * 4 * 300
 
 
 def test_mla_launch_counts_cover_k1_and_k2():
@@ -937,16 +950,20 @@ def test_mla_wrappers_pass_what_the_entry_points_declare(form, monkeypatch):
                                q_offset=32, scale=0.07)
         name, sig = "repro_flash_mla", k2._SIG
     else:
+        # the naive form is no MLA mode: the generic route's entry point,
+        # with the (192, 128) pair and the scale
         q, k = (torch.zeros(1, 40, 8, 192) for _ in range(2))
         out = k2.flash_attention(q, k, torch.zeros(1, 40, 8, 128),
                                  scale=0.07)
         assert out.shape == (1, 40, 8, 128)
-        name, sig = "repro_flash_mla", k2._SIG
+        name, sig = "repro_flash_attention", k2._SIG
     assert [c[0] for c in calls] == [name]
     args = calls[0][1]
     assert len(args) == len(sig[name])
     assert abs(args[sig[name].index(_build.F)] - 0.07) < 1e-12
     if form == "absorbed":
         assert args[1] == args[2] == lat.data_ptr()      # v is k's view
-    # bf16 at q·k 576 runs on the tensor cores (the *_mla_mma kernels)
-    assert args[-2] == (0 if form == "naive" else 1)
+    if form == "naive":
+        assert args[13:16] == (40, 192, 128)    # sk, the key and value widths
+    else:   # bf16 at q·k 576 runs on the tensor cores (*_mla_mma)
+        assert args[-2] == 1

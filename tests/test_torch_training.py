@@ -347,6 +347,15 @@ def _grad(*shape, dtype=torch.float32):
     return torch.randn(*shape, dtype=dtype).requires_grad_()
 
 
+def _absorbed_mla():
+    """K2's MLA mode, the absorbed form: 576-wide queries over one latent
+    head, the values its first 512 columns (the naive form, 192/128, has
+    a backward)."""
+    lat = _grad(1, 8, 1, 576)
+    return ops.flash_attention(_grad(1, 4, 4, 576), lat, lat[..., :512],
+                               q_offset=4, scale=192 ** -0.5)
+
+
 GUARDED = {
     "decode_attention (K1)": lambda: ops.decode_attention(
         _grad(1, 4, 16), _grad(1, 8, 2, 16), _grad(1, 8, 2, 16),
@@ -354,9 +363,7 @@ GUARDED = {
     "flash_attention (K2) in window mode": lambda: ops.flash_attention(
         _grad(1, 4, 4, 16), _grad(1, 8, 2, 16), _grad(1, 8, 2, 16),
         window=4, kv_positions=torch.arange(8, dtype=torch.int32)),
-    "flash_attention (K2) in MLA mode": lambda: ops.flash_attention(
-        _grad(1, 4, 4, 192), _grad(1, 8, 4, 192), _grad(1, 8, 4, 128),
-        scale=192 ** -0.5),
+    "flash_attention (K2) in MLA mode": lambda: _absorbed_mla(),
     "topk_retrieval (K3)": lambda: ops.topk_retrieval(
         _grad(2, 16), torch.randn(32, 16), 4),
     "int8_matmul (K4)": lambda: ops.int8_matmul(
