@@ -44,8 +44,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def make_generator(seed: int, device: torch.device) -> torch.Generator:
-    """A seeded generator on ``device`` (weights are drawn where they live)."""
-    return torch.Generator(device=device).manual_seed(seed)
+    """A seeded generator on ``device`` (weights are drawn where they
+    live); the meta device, which draws nothing, takes a CPU one."""
+    dev = torch.device(device)
+    return torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
 
 
 __all__ = ["resolve_device", "torch_dtype", "make_generator", "DeviceLike"]

@@ -108,18 +108,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K2 with a gradient, on the card: the forward saves q, k, v, the
-    output and its LSE; the backward is K2's backward kernel, at every
-    pair of ``HEAD_DIMS`` (``scale`` only with ``NAIVE_MLA``).  Module
-    globals are read at call time, so a wrapper set on
-    :func:`flash_attention` sees the training forward too."""
+    """K2 with a gradient, on the card (and on the meta device, where both
+    directions give their result shapes: ``ops.meta_*``): the forward
+    saves q, k, v, the output and its LSE; the backward is K2's backward
+    kernel, at every pair of ``HEAD_DIMS`` (``scale`` only with
+    ``NAIVE_MLA``).  Module globals are read at call time, so a wrapper
+    set on :func:`flash_attention` sees the training forward too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int,
                 kv_len: Optional[int], scale: Optional[float] = None):
-        out, lse = flash_attention(q, k, v, causal=causal,
-                                   q_offset=q_offset, kv_len=kv_len,
-                                   scale=scale, return_lse=True)
+        if q.is_meta:
+            from repro_torch.kernels import ops
+            out, lse = ops.meta_flash_attention(q, v, return_lse=True)
+        else:
+            out, lse = flash_attention(q, k, v, causal=causal,
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       scale=scale, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
                         scale=scale)
@@ -127,9 +132,16 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        from repro_torch.kernels import ops
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, dout, lse,
-                                              **ctx.mask)
+        m = ctx.mask
+        with ops.observed("flash_attention_bwd", lambda: ops.flash_bwd_cost(
+                q, k, v, lse, m["causal"], m["q_offset"], m["kv_len"])):
+            if q.is_meta:
+                dq, dk, dv = ops.meta_flash_attention_bwd(q, k, v)
+            else:
+                dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, dout,
+                                                      lse, **m)
         return dq, dk, dv, None, None, None, None
 
 

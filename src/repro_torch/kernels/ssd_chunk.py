@@ -209,23 +209,34 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
 
 class SsdChunkFn(torch.autograd.Function):
-    """K5 with a gradient, on the card: the forward saves x, dt, B, C
-    and dA; the backward is K5's backward kernel.  Module globals are read
-    at call time, so a wrapper set on :func:`ssd_chunk` or on
-    ``ssd_chunk_bwd.ssd_chunk_bwd`` sees both directions.  dB and dC are
-    per head: the backward of the caller's broadcast (an ``expand``
-    view, or ``repeat_interleave``) sums a group's heads."""
+    """K5 with a gradient, on the card (and on the meta device, where both
+    directions give their result shapes: ``ops.meta_*``): the forward
+    saves x, dt, B, C and dA; the backward is K5's backward kernel.
+    Module globals are read at call time, so a wrapper set on
+    :func:`ssd_chunk` or on ``ssd_chunk_bwd.ssd_chunk_bwd`` sees both
+    directions.  dB and dC are per head: the backward of the caller's
+    broadcast (an ``expand`` view, or ``repeat_interleave``) sums a
+    group's heads."""
 
     @staticmethod
     def forward(ctx, x, dt, B, C, dA):
-        y, S = ssd_chunk(x, dt, B, C, dA)
+        if x.is_meta:
+            from repro_torch.kernels import ops
+            y, S = ops.meta_ssd_chunk(x, B)
+        else:
+            y, S = ssd_chunk(x, dt, B, C, dA)
         ctx.save_for_backward(x, dt, B, C, dA)
         return y, S
 
     @staticmethod
     def backward(ctx, dy, dS):
+        from repro_torch.kernels import ops
         from repro_torch.kernels import ssd_chunk_bwd as bwd
-        return bwd.ssd_chunk_bwd(*ctx.saved_tensors, dy, dS)
+        saved = ctx.saved_tensors
+        with ops.observed("ssd_chunk_bwd", lambda: ops.ssd_bwd_cost(*saved)):
+            if saved[0].is_meta:
+                return ops.meta_ssd_chunk_bwd(*saved)
+            return bwd.ssd_chunk_bwd(*saved, dy, dS)
 
 
 def run(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.sharding import constrain, divides, grad_in_layout
 
 Params = Mapping[str, torch.Tensor]
 
@@ -194,16 +195,28 @@ def _in_order(n: int, window: int,
 
 
 def project_q(p: Params, x: torch.Tensor) -> torch.Tensor:
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q = constrain(project_heads(x, p["wq"]), ("batch", None, "model", None))
     return q + p["bq"] if "bq" in p else q
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (b,s,d) . w (d,n,e) -> (b,s,n,e), the reference's
+    ``einsum("bsd,dne->bsne")``.  Under an activation mesh whose ``model``
+    axis n does not divide, it is one product over the flattened heads,
+    whose columns are gathered whole before they are split into heads,
+    and whose weight gradient is taken in the weight's layout before it
+    is split back: a split of n·e over that axis would cut heads apart."""
+    if divides(w.shape[1], "model"):
+        return torch.einsum("bsd,dne->bsne", x, w)
+    y = constrain(x @ grad_in_layout(w.flatten(1)), ("batch", None, None))
+    return y.unflatten(-1, w.shape[1:])
 
 
 def project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
                 theta: float):
     """-> q (b,s,h,e), k, v (b,s,n,e), RoPE on q and k."""
     q = project_q(p, x)
-    k = torch.einsum("bsd,dne->bsne", x, p["wk"])
-    v = torch.einsum("bsd,dne->bsne", x, p["wv"])
+    k, v = project_heads(x, p["wk"]), project_heads(x, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     return (apply_rope(q, positions, theta), apply_rope(k, positions, theta),
@@ -247,4 +260,4 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(x @ p["w_gate"]) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["w_down"]
+    return constrain(h, ("batch", None, "model")) @ p["w_down"]

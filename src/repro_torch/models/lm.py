@@ -52,7 +52,6 @@ import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
@@ -64,6 +63,7 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.models.sharding import constrain, embed, take_last
 
 Cache = Dict[str, Any]
 PORTED_FAMILIES = ("dense", "hybrid", "vlm", "audio", "moe", "ssm")
@@ -485,21 +485,21 @@ def dense_block(p: DenseBlock, cfg: ModelConfig, x: torch.Tensor, *,
     h, new_cache = _attend(p.attn, cfg, L.rmsnorm(p.ln1, x, cfg.norm_eps),
                            positions=positions, causal=causal, cache=cache,
                            cache_idx=cache_idx, window=window)
-    x = x + h
+    x = constrain(x + h, ("batch", None, None))
     new_cross = None
     if p.xattn is not None and (cross_kv is not None
                                 or cross_cache is not None):
         if cross_cache is not None:
             new_cross = cross_cache
         else:
-            new_cross = {
-                "k": torch.einsum("bsd,dne->bsne", cross_kv, p.xattn["wk"]),
-                "v": torch.einsum("bsd,dne->bsne", cross_kv, p.xattn["wv"])}
+            new_cross = {"k": L.project_heads(cross_kv, p.xattn["wk"]),
+                         "v": L.project_heads(cross_kv, p.xattn["wv"])}
         h, _ = L.attention(p.xattn, L.rmsnorm(p.ln_x, x, cfg.norm_eps),
                            positions=positions, theta=cfg.rope_theta,
                            kv_override=(new_cross["k"], new_cross["v"]))
         x = x + torch.tanh(p.xgate).to(x.dtype) * h
-    x = x + L.mlp(p.mlp, L.rmsnorm(p.ln2, x, cfg.norm_eps))
+    x = constrain(x + L.mlp(p.mlp, L.rmsnorm(p.ln2, x, cfg.norm_eps)),
+                  ("batch", None, None))
     return x, new_cache, new_cross
 
 
@@ -680,7 +680,7 @@ def moe_block(p: MoEBlock, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         y = L.mlp(p.mlp, h2)
         aux = torch.zeros((), device=x.device)
-    return x + y, aux
+    return constrain(x + y, ("batch", None, None)), aux
 
 
 def _run_moe(params: MoeLM, cfg: ModelConfig, x, positions, cache,
@@ -725,9 +725,10 @@ def _run_xlstm(params: XlstmLM, cfg: ModelConfig, x: torch.Tensor,
 
 def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
     if params.lm_head is not None:
-        return x @ params.lm_head
+        return constrain(x @ params.lm_head, ("batch", None, "model"))
     # tied embeddings: scale logits by 1/sqrt(d) (the table is unit-scale)
-    return (x @ params.embed.T) * (x.shape[-1] ** -0.5)
+    return constrain((x @ params.embed.T) * (x.shape[-1] ** -0.5),
+                     ("batch", None, "model"))
 
 
 def apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any], *,
@@ -751,7 +752,7 @@ def _apply(params: LM, cfg: ModelConfig, batch: Mapping[str, Any],
            mode: str, cache: Optional[Cache]):
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = F.embedding(tokens, params.embed)
+    x = constrain(embed(tokens, params.embed), ("batch", None, None))
     cache_idx = cache["idx"] if cache is not None else None
     positions = torch.arange(s, device=tokens.device) + (cache_idx or 0)
     new_cache = None if cache is None else {**cache, "idx": cache_idx + s}
@@ -788,10 +789,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     over every (b, s) position.  The gold logit is gathered (the reference
     contracts a one-hot, the same value)."""
     logits = logits.float()
-    m = logits.max(dim=-1, keepdim=True).values.detach()
+    m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
-    gold = shifted.gather(-1, labels[..., None].long())[..., 0] + m[..., 0]
+    gold = take_last(shifted, labels[..., None].long())[..., 0] + m[..., 0]
     return (lse - gold).mean()
 
 
@@ -809,8 +810,8 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Mapping[str, Any]
     mtp = getattr(params, "mtp", None)
     if cfg.mtp_depth and mtp is not None:
         tokens = batch["tokens"]
-        h = F.embedding(tokens[:, 1:], params.embed)
-        h0 = L.rmsnorm(mtp.ln, F.embedding(tokens[:, :-1], params.embed),
+        h = embed(tokens[:, 1:], params.embed)
+        h0 = L.rmsnorm(mtp.ln, embed(tokens[:, :-1], params.embed),
                        cfg.norm_eps)
         h = torch.cat([h0, h], dim=-1) @ mtp.proj
         pos = torch.arange(h.shape[1], device=h.device)

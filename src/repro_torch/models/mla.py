@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.models.sharding import constrain
 
 Params = Mapping[str, torch.Tensor]
 
@@ -58,7 +59,8 @@ def _project_q(p: Params, x: torch.Tensor, m: MLAConfig, positions,
                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> q_nope (b,s,h,e_n), q_rope (b,s,h,e_r)."""
     ql = rmsnorm({"scale": p["q_norm"]}, x @ p["wq_a"])
-    q = torch.einsum("bsr,rhe->bshe", ql, p["wq_b"])
+    q = constrain(torch.einsum("bsr,rhe->bshe", ql, p["wq_b"]),
+                  ("batch", None, "model", None))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, theta)
     return q_nope, q_rope

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.models.sharding import constrain
 
 Params = Mapping[str, torch.Tensor]
 
@@ -92,19 +93,26 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
     slot, keep = dispatch(idx, E, C)
     src = torch.arange(T, device=x.device).repeat_interleave(k)
 
-    # the kept assignments into their (expert, slot); each pair is unique,
-    # and a dropped one would only add 0 (the reference adds it at slot 0)
-    grouped = x.new_zeros((E, C, d))
-    grouped[flat_e[keep], slot[keep]] = x2[src[keep]]
+    # the kept assignments into their (expert, slot), each pair unique; a
+    # dropped one adds 0 at slot 0, as the reference's scatter-add does
+    # (no mask selects the kept ones, so no shape depends on the data)
+    slot_c = torch.where(keep, slot, 0)
+    upd = torch.where(keep[:, None], x2[src], 0)
+    grouped = x.new_zeros((E, C, d)).index_put_((flat_e, slot_c), upd,
+                                                accumulate=True)
+    # decode (few tokens): d over "data" keeps the expert weights
+    # stationary; prefill and train keep d whole (the reference's layout)
+    grouped = constrain(grouped, ("model", None, "data") if T <= 4096
+                        else ("model", None, None))
 
     act = F.silu(torch.bmm(grouped, p["w_gate"])) * torch.bmm(grouped,
                                                               p["w_up"])
     out_g = torch.bmm(act, p["w_down"])                        # (E, C, d)
 
     # gather back with gate weighting: token t's k rows are contiguous
-    picked = out_g[flat_e, torch.where(keep, slot, 0)]
+    picked = out_g[flat_e, slot_c]
     picked = torch.where(keep[:, None], picked, 0) * flat_g[:, None]
-    y = picked.view(T, k, d).sum(1)
+    y = picked.reshape(T, k, d).sum(1)
 
     if "shared_w_gate" in p:
         h = F.silu(x2 @ p["shared_w_gate"]) * (x2 @ p["shared_w_up"])

@@ -23,6 +23,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import chunk_cumsum
 from repro_torch.models.layers import dense_init
+from repro_torch.models.sharding import constrain
 
 Params = Mapping[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
@@ -99,8 +100,8 @@ def mamba2_forward(p: Params, x: torch.Tensor, s: SSMConfig, *,
     nc = l // Q
     dtype = x.dtype
 
-    z = x @ p["wz"]
-    xc = x @ p["wx"]
+    z = constrain(x @ p["wz"], ("batch", None, "model"))
+    xc = constrain(x @ p["wx"], ("batch", None, "model"))
     Bc = x @ p["wB"]
     Cc = x @ p["wC"]
     dt_in = (x @ p["wdt"]).float() + p["dt_bias"]

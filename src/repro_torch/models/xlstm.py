@@ -21,6 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.kernels.ops import is_dtensor
+from repro_torch.models.sharding import (constrain, divides, grad_in_layout,
+                                         run_local)
 from repro_torch.models.ssm import _causal_conv
 
 Params = Mapping[str, torch.Tensor]
@@ -60,7 +63,7 @@ def _mlstm_chunk(q, k, v, ig, fg, state):
     Returns (h (b,Q,H,P) f32, new_state)."""
     b, Q, H, P = q.shape
     C0, n0, m0 = state
-    lf = F.logsigmoid(fg)
+    lf = -torch.logaddexp(-fg, torch.zeros_like(fg))    # log_sigmoid, as jax
     Fc = torch.cumsum(lf, dim=1)                           # inclusive
     # intra-chunk log decay D[i, j] = F_i - F_j + ig_j (j <= i), -inf above
     logD = Fc[:, :, None, :] - Fc[:, None, :, :] + ig[:, None, :, :]
@@ -111,11 +114,16 @@ def mlstm_forward(p: Params, x: torch.Tensor, s: SSMConfig, *,
         ig = torch.where(valid, ig, NEG)
         fg = torch.where(valid, fg, 30.0)     # log_sigmoid(30) ~ 0
     conv_s = init_state["conv"] if init_state else None
-    xq, new_conv = _causal_conv(x @ p["wq"], p["conv"], conv_s,
-                                state_len=l_real)
-    q = xq.reshape(b, l, H, P)
-    k = (x @ p["wk"]).reshape(b, l, H, P)
-    v = (x @ p["wv"]).reshape(b, l, H, P)
+    # prefill and train gather the inner projections once (replicated);
+    # a single decode token keeps them sharded where the heads divide the
+    # model axis (the reference's layout)
+    inner = (("batch", None, "model") if l_real == 1 and divides(H, "model")
+             else ("batch", None, None))
+    xq, new_conv = _causal_conv(constrain(x @ p["wq"], inner), p["conv"],
+                                conv_s, state_len=l_real)
+    q = constrain(xq, inner).reshape(b, l, H, P)
+    k = constrain(x @ p["wk"], inner).reshape(b, l, H, P)
+    v = constrain(x @ p["wv"], inner).reshape(b, l, H, P)
 
     if init_state is not None:
         st = tuple(init_state[key].float() for key in "Cnm")
@@ -129,7 +137,8 @@ def mlstm_forward(p: Params, x: torch.Tensor, s: SSMConfig, *,
         h, st = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
                              fg[:, sl], st)
         hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(b, l, di).to(dtype)
+    # its gradient comes back in this layout before the split into heads
+    h = grad_in_layout(torch.cat(hs, dim=1).reshape(b, l, di)).to(dtype)
     out = h @ p["w_out"]
     if l != l_real:
         out = out[:, :l_real]
@@ -164,6 +173,25 @@ def init_slstm(d: int, dtype: torch.dtype, generator: torch.Generator,
             "w_out": dense((d, d))}
 
 
+def _slstm_scan(wx: torch.Tensor, R: torch.Tensor, c, n, h, m):
+    """The sLSTM's time loop: wx (b, l, 4d) f32 input gates, R (d, 4d)
+    -> (every step's h (b, l, d) f32, the last c, n, h, m)."""
+    hs = []
+    for t in range(wx.shape[1]):
+        # h is cast to the model dtype before R on every step
+        g = wx[:, t] + (h.to(R.dtype) @ R).float()
+        gi, gf, gz, go = g.chunk(4, dim=-1)
+        m_new = torch.maximum(gf + m, gi)                 # exp-gate stabiliser
+        i = torch.exp(gi - m_new)
+        f = torch.exp(gf + m - m_new)
+        c = f * c + i * torch.tanh(gz)
+        n = f * n + i
+        h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), c, n, h, m
+
+
 def slstm_forward(p: Params, x: torch.Tensor, *,
                   init_state: Optional[State] = None,
                   return_state: bool = False
@@ -177,20 +205,14 @@ def slstm_forward(p: Params, x: torch.Tensor, *,
         c = n = h = torch.zeros((b, d), device=x.device)
         m = torch.full((b, d), NEG, device=x.device)
     wx = (x @ p["W"]).float() + p["bias"]
-    hs = []
-    for t in range(l):
-        # h is cast to the model dtype before R on every step
-        g = wx[:, t] + (h.to(dtype) @ p["R"]).float()
-        gi, gf, gz, go = g.chunk(4, dim=-1)
-        m_new = torch.maximum(gf + m, gi)                 # exp-gate stabiliser
-        i = torch.exp(gi - m_new)
-        f = torch.exp(gf + m - m_new)
-        c = f * c + i * torch.tanh(gz)
-        n = f * n + i
-        h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
-        m = m_new
-        hs.append(h)
-    out = torch.stack(hs, dim=1).to(dtype) @ p["w_out"]
+    state = (wx, p["R"], c, n, h, m)
+    if is_dtensor(wx):      # each rank scans its own batch rows
+        hs, c, n, h, m = run_local(
+            _slstm_scan, state, [(0, None), (None, None)] + [(0, None)] * 4,
+            [(3, 0, None)] + [(2, 0, None)] * 4, heads=())
+    else:
+        hs, c, n, h, m = _slstm_scan(*state)
+    out = hs.to(dtype) @ p["w_out"]
     if not return_state:
         return out, None
     return out, {"c": c, "n": n, "h": h, "m": m}

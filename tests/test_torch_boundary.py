@@ -167,9 +167,23 @@ def test_launch_counts_cover_the_kernel_table():
         k.name: 0 for k in ops.BACKWARD_KERNELS}
 
 
-def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
-    from repro_torch.kernels import ops
+def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu(
+        monkeypatch):
+    """The meta device (the dry-run) gets the kernel's result shapes and
+    never the plain version; any device but the CPU, the card and meta
+    raises."""
+    import types
+
+    from repro_torch.kernels import ops, ref
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran off the CPU")
+    monkeypatch.setattr(ref, "decode_attention_ref", plain)
     q = torch.zeros(1, 2, 16, device="meta")
+    out = ops.decode_attention(q, q[:, None], q[:, None],
+                               torch.ones(1, dtype=torch.int32))
+    assert out.is_meta and out.shape == q.shape
+    other = types.SimpleNamespace(is_meta=False, is_cuda=False,
+                                  device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        ops.decode_attention(q, q[:, None], q[:, None],
-                             torch.ones(1, dtype=torch.int32))
+        ops._route(other)

@@ -1364,3 +1364,36 @@ def test_reduced_zamba2_train_step_card_matches_cpu(cuda):
     for name, w in gc_.items():
         np.testing.assert_allclose(_f32(gg[name]), _f32(w), atol=2e-5,
                                    rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_kernel_bench_row_at_the_train_shape(cuda):
+    """One row of ``launch/kernels_bench.py``: K2's training forward at
+    the train path's shape, timed beside its plain version and SDPA under
+    its bound."""
+    from repro_torch.launch import kernels_bench
+    key = kernels_bench.PATH_KEYS["train"]["flash_attention"]
+    r = kernels_bench.row("flash_attention", "train", key)
+    assert r["device_us"] > 0 and r["host_us"] > 0 and r["plain_us"] > 0
+    assert r["library_us"] > 0 and r["bound_by"] in ("bytes", "operations")
+    assert 0 < r["bound_us"] < r["device_us"]
+
+
+@pytest.mark.cuda
+def test_train_step_counted_on_the_card_equals_meta(cuda):
+    """``launch/op_cost.py`` over one reduced qwen1.5 train step (f32, 2 x
+    64 tokens): the same FLOPs, bytes and kernel calls on the card as on
+    the meta device, and the card's kernel calls its launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    cfg = reduced(get_config("qwen1.5-0.5b"), d_model=256)
+    ops.reset_launch_counts()
+    card, _ = dryrun.count_train_step(cfg, 2, 64, cuda)
+    torch.cuda.synchronize()
+    launched = {**ops.launch_counts(), **ops.backward_launch_counts()}
+    meta, _ = dryrun.count_train_step(cfg, 2, 64, "meta")
+    assert dict(card.kernels) == dict(meta.kernels) == {
+        "flash_attention": launched["flash_attention"],
+        "flash_attention_bwd": launched["flash_attention_bwd"]}
+    assert card.flops == meta.flops and card.bytes == meta.bytes
