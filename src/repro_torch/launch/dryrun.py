@@ -35,6 +35,7 @@ import json
 import math
 import os
 import time
+import traceback
 from typing import Any, Dict, Iterable, Optional
 
 import torch
@@ -246,6 +247,26 @@ def roofline(cost: Dict[str, Any], coll: Dict[str, float], chips: int,
     }
 
 
+def error_site(e: BaseException) -> str:
+    """Where a cell failed: the innermost frame of the port outside the
+    counter (``repro_torch/...py:line``), then the operation the counter
+    saw fail and, in a backward, its autograd node, as
+    ``repro_torch/models/moe.py:120 aten.view.default`` or
+    ``... aten._unsafe_view.default in UnsafeViewBackward0``."""
+    site = "?"
+    for f in traceback.extract_tb(e.__traceback__):
+        path = f.filename.replace(os.sep, "/")
+        if "/repro_torch/" in path and not path.endswith("/op_cost.py"):
+            site = f"{path[path.rindex('/repro_torch/') + 1:]}:{f.lineno}"
+    op = getattr(e, "aten_op", None)
+    if op is not None:
+        site += f" {op}"
+        node = getattr(e, "autograd_node", None)
+        if node is not None:
+            site += f" in {node}"
+    return site
+
+
 def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
              verbose: bool = True,
              overrides: Optional[Dict] = None) -> Dict[str, Any]:
@@ -273,7 +294,8 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
             fits_16gb_hbm=bool(peak < 16e9),
             fits_80gb_hbm=bool(peak < h100.HBM_BYTES))
     except Exception as e:  # a failing cell is a fault of the port
-        rec.update(status="error", error=f"{type(e).__name__}: {e}")
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   where=error_site(e))
     if verbose:
         print(json.dumps(rec)[:400], flush=True)
     return rec

@@ -110,6 +110,17 @@ def _flops(name: str, args, out) -> float:
     return 0.0
 
 
+def _mark_failed_op(e: Exception, func) -> None:
+    """Tags ``e`` with the innermost operation it came out of
+    (``e.aten_op``) and, raised in a backward, the autograd node that ran
+    it (``e.autograd_node``); the outer operations it passes through keep
+    the first tag."""
+    if getattr(e, "aten_op", None) is None:
+        node = torch._C._current_autograd_node()
+        e.aten_op = str(func)
+        e.autograd_node = None if node is None else type(node).__name__
+
+
 class OpCounter(TorchDispatchMode):
     """FLOPs, bytes, collective bytes, kernel calls and peak live bytes of
     the operations run while it is entered (see the module docstring)."""
@@ -173,7 +184,11 @@ class OpCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         if DTensor in types:
             return NotImplemented       # count its local operations instead
-        out = func(*args, **kwargs)
+        try:
+            out = func(*args, **kwargs)
+        except Exception as e:
+            _mark_failed_op(e, func)
+            raise
         if torch._C._get_dispatch_mode(
                 torch._C._TorchDispatchModeKey.FAKE) is not None:
             return out                  # DTensor's sharding propagation

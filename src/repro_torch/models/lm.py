@@ -672,7 +672,9 @@ def moe_block(p: MoEBlock, cfg: ModelConfig, x: torch.Tensor, *,
                              cfg.mla, positions=positions,
                              theta=cfg.rope_theta, cache=cache,
                              cache_idx=cache_idx)
-    x = x + h
+    # as dense_block's: a partial sum over "model" left to DTensor is
+    # reduced onto the sequence (an uneven split of v3's 4,095 MTP rows)
+    x = constrain(x + h, ("batch", None, None))
     h2 = L.rmsnorm(p.ln2, x, cfg.norm_eps)
     if p.moe is not None:
         y, aux = MOE.moe_ffn(p.moe, h2, cfg.moe,
@@ -813,7 +815,9 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Mapping[str, Any]
         h = embed(tokens[:, 1:], params.embed)
         h0 = L.rmsnorm(mtp.ln, embed(tokens[:, :-1], params.embed),
                        cfg.norm_eps)
-        h = torch.cat([h0, h], dim=-1) @ mtp.proj
+        # rows over the batch axes, d whole, as mla._latent's and why
+        h = constrain(torch.cat([h0, h], dim=-1) @ mtp.proj,
+                      ("batch", None, None))
         pos = torch.arange(h.shape[1], device=h.device)
         h, _ = moe_block(mtp.block, cfg, h, positions=pos)
         mtp_ce = cross_entropy(_logits(params, h)[:, :-1], labels[:, 2:])

@@ -55,10 +55,19 @@ def init_mla(d: int, n_heads: int, m: MLAConfig, dtype: torch.dtype,
     }
 
 
+def _latent(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (b,s,d) @ w (d,r): a down-projection, its rows over the batch
+    axes and r whole under an activation mesh, as the reference's
+    (data, None) weight gives it.  Left to DTensor, r splits over "model"
+    and the rmsnorm's backward splits the sequence over it instead, whose
+    (b·s) views cost DTensor's redistribute planner a graph search an op."""
+    return constrain(x @ w, ("batch", None, None))
+
+
 def _project_q(p: Params, x: torch.Tensor, m: MLAConfig, positions,
                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> q_nope (b,s,h,e_n), q_rope (b,s,h,e_r)."""
-    ql = rmsnorm({"scale": p["q_norm"]}, x @ p["wq_a"])
+    ql = rmsnorm({"scale": p["q_norm"]}, _latent(x, p["wq_a"]))
     q = constrain(torch.einsum("bsr,rhe->bshe", ql, p["wq_b"]),
                   ("batch", None, "model", None))
     q_nope = q[..., :m.qk_nope_head_dim]
@@ -69,7 +78,7 @@ def _project_q(p: Params, x: torch.Tensor, m: MLAConfig, positions,
 def _project_kv_latent(p: Params, x: torch.Tensor, m: MLAConfig, positions,
                        theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> ckv (b,s,r), k_rope (b,s,e_r): what gets cached."""
-    kv = x @ p["wkv_a"]
+    kv = _latent(x, p["wkv_a"])
     ckv = rmsnorm({"scale": p["kv_norm"]}, kv[..., :m.kv_lora_rank])
     k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions, theta)
     return ckv, k_rope[..., 0, :]

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import dense_init
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import batch_rows, constrain
 
 Params = Mapping[str, torch.Tensor]
 
@@ -86,7 +86,8 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
     """x (b, s, d) -> (y, aux_loss)."""
     b, s, d = x.shape
     T, E, k = b * s, cfg.num_experts, cfg.top_k
-    x2 = x.reshape(T, d)
+    # the rows keep x's batch layout, the gradient's too (sharding.py)
+    x2 = batch_rows(x.reshape(T, d), b)
     gates, idx, aux = _router(p, x2, cfg)
     C = capacity(T, cfg, capacity_factor)
     flat_e, flat_g = idx.reshape(-1), gates.reshape(-1)
@@ -117,4 +118,4 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
     if "shared_w_gate" in p:
         h = F.silu(x2 @ p["shared_w_gate"]) * (x2 @ p["shared_w_up"])
         y = y + h @ p["shared_w_down"]
-    return y.reshape(b, s, d), aux
+    return batch_rows(y, b).reshape(b, s, d), aux

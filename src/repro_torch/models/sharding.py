@@ -210,6 +210,22 @@ def grad_in_layout(x: torch.Tensor) -> torch.Tensor:
     return _LayoutOfGrad.apply(x) if is_dtensor(x) else x
 
 
+def batch_rows(x: torch.Tensor, b: int) -> torch.Tensor:
+    """``x`` (b·s, ...), the token rows of a (b, s, ...) tensor, laid out
+    as that tensor's batch dim is, over (pod, data) where ``b`` divides
+    them and whole otherwise, while an activation mesh is set; the
+    identity otherwise.  DTensor's view between (b·s, ...) and (b, s, ...)
+    takes rows split over more ranks than ``b`` has rows (over ``model``
+    too) into a local view of the wrong size, forward or backward, where
+    GSPMD re-lays them out."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None:
+        return x
+    spec = activation_spec((b,), ("batch",), axis_sizes(mesh))
+    return x.redistribute(mesh, placements(spec + (None,) * (x.ndim - 1),
+                                           mesh))
+
+
 def divides(n: int, axis: str) -> bool:
     """Whether ``n`` splits evenly over mesh axis ``axis`` of the
     activation mesh (always, with none set)."""

@@ -17,11 +17,14 @@
   shape (cache leaves through ``bridge``'s map: the port's ``latent`` is
   the reference's ``ckv`` and ``krope`` side by side).
 - ``launch/dryrun.run_cell`` ok for reduced qwen1.5 on a fake 2 x 2 mesh
-  and on one device, its argument bytes rank 0's local shards.
+  and on one device, its argument bytes rank 0's local shards; ok for
+  reduced deepseek-v2/v3 (published MLA widths) at train and prefill on
+  both production meshes; a failing cell's record names where it failed.
 
 Every test tears the fake process group down.
 """
 import dataclasses
+import linecache
 
 import jax
 import jax.numpy as jnp
@@ -46,9 +49,10 @@ from repro_torch.configs import (SHAPES_BY_NAME, get_config,  # noqa: E402
                                  list_archs, reduced, shape_applicable)
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import dryrun, mesh as port_mesh  # noqa: E402
+from repro_torch.launch import op_cost  # noqa: E402
 from repro_torch.launch.op_cost import OpCounter, analyze  # noqa: E402
 from repro_torch.models import (build_model, input_specs,  # noqa: E402
-                                lm, make_step_fn, sharding)
+                                layers, lm, make_step_fn, sharding)
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
@@ -376,6 +380,86 @@ def test_run_cell_reduced_qwen_ok(mesh_name):
         assert sum(rec["collectives"].values()) == 0
     else:
         assert rec["collectives"]["all-gather"] > 0
+
+
+def _reduced_moe_overrides(arch):
+    """2 layers at d_model 256, the rest of ``reduced`` (4 routed experts),
+    but MLA at its published widths, the published remat and dtype: at
+    reduced MLA widths K2 takes the absorbed form, which has no backward,
+    so a train step would stop before the MoE code."""
+    full = get_config(arch)
+    rc = dataclasses.replace(reduced(full, layers=2, d_model=256),
+                             mla=full.mla, head_dim=full.head_dim,
+                             remat=full.remat, dtype=full.dtype)
+    return rc, {f.name: getattr(rc, f.name) for f in dataclasses.fields(rc)}
+
+
+# in the first three the batch is smaller than the ranks the token rows
+# end up on, which broke the MoE output's reshape (and v3's MTP block in
+# the first); train_4k on 16x16 never failed: a control
+_MOE_CELLS = [("train_4k", "2x16x16"), ("prefill_32k", "16x16"),
+              ("prefill_32k", "2x16x16"), ("train_4k", "16x16")]
+
+
+@pytest.mark.parametrize("shape_name,mesh_name", _MOE_CELLS)
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_run_cell_reduced_moe_on_the_meshes(arch, shape_name, mesh_name):
+    """Reduced deepseek-v2/v3 (published MLA widths) end ok on both
+    production meshes, each record with its kernel calls and collectives:
+    K2 once a layer (twice under remat, and v3's MTP block once more), its
+    backward once a layer in a train step."""
+    cfg, over = _reduced_moe_overrides(arch)
+    rec = dryrun.run_cell(arch, shape_name, mesh=mesh_name, verbose=False,
+                          overrides=over)
+    assert rec["status"] == "ok", (rec.get("error"), rec.get("where"))
+    n = cfg.num_layers
+    if shape_name == "train_4k":
+        mtp = 1 if cfg.mtp_depth else 0
+        want = {"flash_attention": 2 * n + mtp,
+                "flash_attention_bwd": n + mtp}
+    else:
+        want = {"flash_attention": n}
+    assert rec["kernels"] == want
+    assert set(rec["collectives"]) == set(op_cost.COLLECTIVES)
+    assert rec["collectives"]["all-gather"] > 0
+    assert rec["collectives"]["all-reduce"] > 0
+
+
+def test_run_cell_error_says_where():
+    """A cell that fails names the port's innermost frame and the
+    operation the counter saw fail: reduced qwen1.5 with an odd head width,
+    which RoPE's halves cannot take."""
+    _, over = _reduced_overrides()
+    rec = dryrun.run_cell("qwen1.5-0.5b", "train_4k", mesh="1",
+                          verbose=False, overrides={**over, "head_dim": 63})
+    assert rec["status"] == "error"
+    path, _, rest = rec["where"].partition(":")
+    assert path == "repro_torch/models/layers.py"
+    line, op = rest.split(" ")
+    assert "x1 * sin" in linecache.getline(layers.__file__, int(line))
+    assert op == "aten.mul.Tensor"
+
+
+def test_failed_op_in_a_backward_names_its_node():
+    """An operation that fails in a backward is tagged with its autograd
+    node as well."""
+    class Broken(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.view(3, 5)
+
+    x = torch.ones(16, requires_grad=True)
+    with pytest.raises(RuntimeError) as info, OpCounter():
+        Broken.apply(x).sum().backward()
+    e = info.value
+    assert (e.aten_op, e.autograd_node) == ("aten.view.default",
+                                            "BrokenBackward")
+    assert dryrun.error_site(e).endswith(
+        " aten.view.default in BrokenBackward")
 
 
 def test_mesh_one_runs_no_process_group():
