@@ -17,9 +17,10 @@ failure ends the run with a non-zero exit code and no result line:
               int8_mm_wgmma the integer wgmma (IGMMA) and TMA loads, K5's
               bf16 chunk kernel ssd_chunk_mma the tensor-core mma.sync
               (HMMA) and cp.async (LDGSTS), its ssd_decode 16-byte loads
-              and stores (LDG.E.128, STG.E.128); K1's and K2's MLA-mode
-              kernels cp.async, and their bf16 decode_mla_mma and
-              flash_mla_mma mma.sync (HMMA) fed by ldmatrix (LDSM);
+              and stores (LDG.E.128, STG.E.128); K1's and K2's f32
+              MLA-mode kernels cp.async, their bf16 decode_mla_wgmma and
+              flash_mla_wgmma wgmma (HGMMA), TMA loads (UTMALDG) and the
+              cluster barrier of the split merge (UCGABAR_ARV/WAIT);
               K2's bf16 backward kernels flash_bwd_dkdv_wgmma and
               flash_bwd_dq_wgmma wgmma (HGMMA) and TMA loads (UTMALDG);
               K5's bf16 backward kernels ssd_bwd_keys_mma and
@@ -58,8 +59,9 @@ failure ends the run with a non-zero exit code and no result line:
               beside SDPA with an explicit boolean mask.  K1 and K2 in
               their MLA mode at deepseek-v2's shapes (128 heads over the
               576-wide latent rows, values their first 512 columns), in
-              bf16 (timed beside SDPA with ``scale`` and ``enable_gqa``)
-              and f32; K2 at the naive form's widths (q·k 192, v 128, n =
+              bf16 (timed beside SDPA with ``scale`` and ``enable_gqa``,
+              and beside the mma.sync kernel it replaced, as PERF.md
+              records it) and f32; K2 at the naive form's widths (q·k 192, v 128, n =
               h, the scale) on its generic route, 150 x 8 and 128 x 128
               heads.  K2's backward
               (``flash_attention_bwd``) against its plain version
@@ -251,6 +253,25 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_STEPS, TRAIN_DROP, RESTART_TOL = 12, 0.5, 2e-2
 
 
+# K1's and K2's bf16 MLA mode at check_mla's shapes: us a call of the
+# mma.sync kernels that decode_mla_wgmma and flash_mla_wgmma replaced
+# (decode_mla_mma, flash_mla_mma), as PERF.md §6 records them: mla_sweep.py
+# on the parent tree, the mean of two runs taken in turns with the new
+# kernels in one call (NVIDIA H100 80GB HBM3, 700 W); printed beside each
+# new time
+MLA_MMA_US = {
+    "decode_attention MLA 128 heads S=64": 18.46,
+    "decode_attention MLA 128 heads S=333": 22.32,
+    "decode_attention MLA 128 heads S=923": 27.87,
+    "decode_attention MLA S=923 no split": 138.43,
+    "decode_attention MLA ragged [300,77,0]": 21.22,
+    "flash_attention MLA absorbed sq=128 q_offset=0": 53.15,
+    "flash_attention MLA absorbed sq=128 q_offset=384": 154.11,
+    "flash_attention MLA absorbed sq=128 q_offset=772": 258.08,
+    "flash_attention MLA absorbed sq=77 q_offset=256": 108.82,
+    "flash_attention MLA absorbed sq=5 q_offset=0": 17.66}
+
+
 def say(*a):
     print(*a, flush=True)
 
@@ -347,11 +368,11 @@ def phase_build():
     # (UCGABAR_ARV/WAIT) in K1's; the integer wgmma (IGMMA) and TMA loads
     # in K4's int8_mm_wgmma; the tensor-core mma.sync (HMMA) and cp.async
     # in K5's ssd_chunk_mma, 16-byte loads and stores in its ssd_decode;
-    # cp.async in K1's and K2's MLA mode (decode_mla, flash_mla), and in
-    # their bf16 decode_mla_mma and flash_mla_mma also mma.sync (HMMA) fed
-    # by ldmatrix (LDSM); wgmma and TMA loads in K2's bf16 backward
-    # kernels; mma.sync and cp.async in K5's bf16 backward kernels.  Each
-    # named kernel must issue each opcode.
+    # cp.async in K1's and K2's f32 MLA mode (decode_mla, flash_mla); in
+    # their bf16 decode_mla_wgmma and flash_mla_wgmma wgmma, TMA loads and
+    # the cluster barrier of the split merge; wgmma and TMA loads in K2's
+    # bf16 backward kernels; mma.sync and cp.async in K5's bf16 backward
+    # kernels.  Each named kernel must issue each opcode.
     must = {"flash_fwd_wgmma": ("HGMMA", "UTMALDG"),
             "topk_partial": ("LDGSTS",),
             "decode_attn": ("LDG.E.128", "UCGABAR_ARV", "UCGABAR_WAIT"),
@@ -359,18 +380,21 @@ def phase_build():
             "ssd_chunk_mma": ("HMMA", "LDGSTS"),
             "ssd_decode": ("LDG.E.128", "STG.E.128"),
             "decode_mla": ("LDGSTS",), "flash_mla": ("LDGSTS",),
-            "flash_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
-            "decode_mla_mma": ("HMMA", "LDSM", "LDGSTS"),
+            "flash_mla_wgmma": ("HGMMA", "UTMALDG", "UCGABAR_ARV",
+                                "UCGABAR_WAIT"),
+            "decode_mla_wgmma": ("HGMMA", "UTMALDG", "UCGABAR_ARV",
+                                 "UCGABAR_WAIT"),
             "flash_bwd_dkdv_wgmma": ("HGMMA", "UTMALDG"),
             "flash_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
             "ssd_bwd_keys_mma": ("HMMA", "LDGSTS"),
             "ssd_bwd_queries_mma": ("HMMA", "LDGSTS")}
     for name, opcodes in (("flash_attention", ("HGMMA", "UTMALDG",
-                                               "LDGSTS", "HMMA", "LDSM")),
+                                               "LDGSTS", "UCGABAR_ARV",
+                                               "UCGABAR_WAIT")),
                           ("topk_retrieval", ("LDGSTS",)),
                           ("decode_attention", ("LDG.E.128", "UCGABAR_ARV",
                                                 "UCGABAR_WAIT", "LDGSTS",
-                                                "HMMA", "LDSM")),
+                                                "HGMMA", "UTMALDG")),
                           ("int8_matmul", ("IGMMA", "UTMALDG")),
                           ("ssd_chunk", ("HMMA", "LDGSTS", "LDG.E.128",
                                          "STG.E.128")),
@@ -746,7 +770,13 @@ def check_mla(g, errs):
                     f"kernel {xerr:.2e} <= {tol_str(c['exact_tol'])}, plain "
                     f"{max_err(want, exact):.2e}")
             if dt == torch.bfloat16:
-                line += " | " + fmt(measure(c))
+                t = measure(c)
+                line += " | " + fmt(t)
+                was = MLA_MMA_US.get(what)
+                line += (" | the mma.sync kernel it replaced: not measured"
+                         if was is None else
+                         f" | the mma.sync kernel it replaced {was:.2f} us,"
+                         f" now {was / (1e3 * t['ms']):.2f}x as fast")
             say(line)
     for sq, h in ((150, 8), (128, 128)):
         for dt in (torch.bfloat16, torch.float32):

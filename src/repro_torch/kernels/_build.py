@@ -141,7 +141,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         print(f"[build] {n}: {took[n]:.1f}s; ptxas per kernel: "
               + " | ".join(lines), flush=True)
         for ln in out.splitlines():
-            if "warning" in ln.lower():
+            if "warning" in ln.lower() or "Performance Loss" in ln:
                 print(f"[build] {n}: {ln.strip()}", flush=True)
         rep = tmp.with_suffix(".ptxas")
         rep.write_text("".join(ln + "\n" for ln in lines))

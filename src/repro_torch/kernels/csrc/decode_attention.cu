@@ -61,11 +61,12 @@
 // not the Pallas kernel: a row with lengths[b] == 0 outputs 0 (the Pallas
 // -1e30 sentinel returns mean(V)).
 //
-// MLA mode (decode_mla_mma, decode_mla, decode_mla_combine): DeepSeek's
+// MLA mode (decode_mla_wgmma, decode_mla, decode_mla_combine): DeepSeek's
 // absorbed decode, 128 query heads over one 576-wide latent key row per
 // position, values its first 512 columns, an explicit scale; mla.cuh's
-// tile loops, shared with K2's MLA mode: bf16 on the tensor cores
-// (decode_mla_mma), f32 on the CUDA cores (decode_mla).
+// tile loops, shared with K2's MLA mode: bf16 on wgmma with TMA-fed tiles,
+// a split row merged inside its cluster (decode_mla_wgmma, one launch),
+// f32 on the CUDA cores (decode_mla, + decode_mla_combine when split).
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -101,12 +102,6 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
     f[2 * i] = p.x;
     f[2 * i + 1] = p.y;
   }
-}
-
-__device__ __forceinline__ uint32_t cluster_nctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
 }
 
 // Grid (nsplit, n * g / heads, b), clusters of (nsplit, 1, 1), W warps a
@@ -307,7 +302,7 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k,
 
   // merge the warps: the block's (m, l) per head into blk_ml, its acc
   // into red_acc[0] (each element read and written by one thread)
-  const uint32_t csize = cluster_nctarank();
+  const uint32_t csize = repro::cluster_nctarank();
   if (csize != (uint32_t)nsplit) __trap();  // the planned cluster did not form
   for (int idx = t; idx < heads * E; idx += kThreads) {
     const int gi = idx / E, j = idx % E;
@@ -430,11 +425,13 @@ decode_mla(const repro_mla::Args a) {
   repro_mla::attend<T, EK, EV>(a, mla_smem);
 }
 
-// MLA mode in bf16: mla.cuh's tensor-core tile loop, one query a row
-__global__ void __launch_bounds__(repro_mla::kThreads, 1)
-decode_mla_mma(const repro_mla::Args a) {
-  extern __shared__ __align__(16) unsigned char mla_smem[];
-  repro_mla::attend_mma(a, mla_smem);
+// MLA mode in bf16: mla.cuh's wgmma tile loop, one query a row
+__global__ void __launch_bounds__(repro_mla::kWgThreads, 1)
+decode_mla_wgmma(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const repro_mla::WgArgs a) {
+  extern __shared__ __align__(16) uint8_t mla_wg_smem[];
+  repro_mla::attend_wgmma(&qmap, &kmap, a, mla_wg_smem);
 }
 
 template <typename T, int EV>
@@ -495,30 +492,37 @@ extern "C" int repro_decode_attention(
 // MLA mode: q (b,h,ek) with element strides (qsb, qsh); k (b,S,n,ek) with
 // unit stride on the last axis, the values its first ev columns (read
 // from the K tile); lengths (b,) int32; out (b,h,ev) contiguous in q's
-// dtype; scale multiplies q.k (log2(e) is applied here).  The plan
-// (chunk, nsplit) is flash_attention.py::mla_plan's; part_o (nsplit,b,h,
-// ev) and part_ml (nsplit,b,h,2) are f32 scratch when nsplit > 1.  (ek,
-// ev) = (576, 512) only: DeepSeek's absorbed decode over its latent cache;
-// bf16 on decode_mla_mma (mma = 1, 64 rows a block), f32 on decode_mla.
+// dtype; scale multiplies q.k (log2(e) is applied here).  (ek, ev) =
+// (576, 512) only: DeepSeek's absorbed decode over its latent cache.
+// bf16 runs decode_mla_wgmma (wgmma = 1) with the plan (chunk, nsplit) of
+// flash_attention.py::mla_wgmma_plan: nsplit <= 8 blocks a row tile, one
+// cluster, covering S; q and k must be TMA-ready (16-byte aligned, strides
+// multiples of 16 bytes).  f32 runs decode_mla with mla_plan's, and
+// part_o (nsplit,b,h,ev) and part_ml (nsplit,b,h,2) are its f32 scratch
+// when nsplit > 1.
 extern "C" int repro_decode_mla(
     const void* q, const void* k, const void* lengths, void* out,
     void* part_o, void* part_ml, int dtype, int b, int h, int n, int S,
     int ek, int ev, float scale, int chunk, int nsplit, long long qsb,
-    long long qsh, long long ksb, long long kss, long long ksn, int mma,
+    long long qsh, long long ksb, long long kss, long long ksn, int wgmma,
     void* stream) {
   if (lengths == nullptr || ek != 576 || ev != 512)
     return cudaErrorInvalidValue;
+  const float scale2 = scale * 1.4426950408889634f;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kBF16 && wgmma) {
+    if ((long long)chunk * nsplit < S) return cudaErrorInvalidValue;
+    const repro_mla::WgArgs a{static_cast<__nv_bfloat16*>(out),
+                              static_cast<const int*>(lengths), 1, h, n, S,
+                              S, 0, 0, chunk, nsplit, scale2};
+    return repro_mla::launch_wgmma(decode_mla_wgmma, q, k, a, b, qsb,
+                                   (long long)h * qsh, qsh, ksb, kss, ksn,
+                                   st);
+  }
+  if (dtype != repro::kF32 || wgmma) return cudaErrorInvalidValue;
   repro_mla::Args a{q, k, static_cast<const int*>(lengths), out,
                     static_cast<float*>(part_o),
                     static_cast<float*>(part_ml), b, 1, h, n, S, S, 0, 0,
-                    chunk, nsplit, scale * 1.4426950408889634f, qsb, 0,
-                    qsh, ksb, kss, ksn};
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16 && mma && chunk % repro_mla::kMmaKeys == 0)
-    return repro_mla::launch_rows<__nv_bfloat16, 512>(
-        decode_mla_mma, decode_mla_combine<__nv_bfloat16, 512>, a,
-        repro_mla::kMmaRows, repro_mla::kMmaSmem, st);
-  if (dtype == repro::kF32 && !mma)
-    return launch_mla<float, 576, 512>(a, st);
-  return cudaErrorInvalidValue;
+                    chunk, nsplit, scale2, qsb, 0, qsh, ksb, kss, ksn};
+  return launch_mla<float, 576, 512>(a, st);
 }

@@ -75,12 +75,13 @@
 // (flash_attention_bwd.cu) recomputes P from it.  Serving passes null and
 // writes nothing.
 //
-// MLA mode (flash_mla_mma, flash_mla, flash_mla_combine): DeepSeek's
+// MLA mode (flash_mla_wgmma, flash_mla, flash_mla_combine): DeepSeek's
 // multi-head latent attention in its absorbed form, the prefill chunk over
 // the latent cache (q·k 576, v 512 = the keys' first columns, n = 1, g =
-// 128, causal at q_offset, an explicit scale): bf16 runs mla.cuh's
-// tensor-core loop (flash_mla_mma), f32 its CUDA-core loop (flash_mla),
-// shared with K1's MLA mode.  It has no LSE output and no backward: no
+// 128, causal at q_offset, an explicit scale): bf16 runs mla.cuh's wgmma
+// loop (flash_mla_wgmma: TMA-fed tiles, causal blocks longest first,
+// splits merged inside their cluster), f32 its CUDA-core loop (flash_mla,
+// + flash_mla_combine when split), shared with K1's MLA mode.  It has no LSE output and no backward: no
 // training path runs a cache.
 #include <climits>
 
@@ -643,11 +644,13 @@ flash_mla(const repro_mla::Args a) {
   repro_mla::attend<T, EK, EV>(a, mla_smem);
 }
 
-// MLA mode, bf16 absorbed form: mla.cuh's tensor-core tile loop
-__global__ void __launch_bounds__(repro_mla::kThreads, 1)
-flash_mla_mma(const repro_mla::Args a) {
-  extern __shared__ __align__(16) unsigned char mla_smem[];
-  repro_mla::attend_mma(a, mla_smem);
+// MLA mode, bf16 absorbed form: mla.cuh's wgmma tile loop
+__global__ void __launch_bounds__(repro_mla::kWgThreads, 1)
+flash_mla_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const repro_mla::WgArgs a) {
+  extern __shared__ __align__(16) uint8_t mla_wg_smem[];
+  repro_mla::attend_wgmma(&qmap, &kmap, a, mla_wg_smem);
 }
 
 template <typename T, int EV>
@@ -718,31 +721,39 @@ extern "C" int repro_flash_attention(
 // unit stride on the last axis and element strides for the others, every
 // row 16-byte aligned; out (b,sq,h,512) contiguous in q's dtype.  kv_len
 // <= sk keys are visible, query i sits at q_offset + i, the mask is causal
-// if asked; scale multiplies q.k (log2(e) is applied here).  The plan
-// (chunk, nsplit) is flash_attention.py::mla_plan's; part_o
-// (nsplit,b,sq,h,512) and part_ml (nsplit,b,sq,h,2) are f32 scratch when
-// nsplit > 1.  bf16 runs flash_mla_mma (mma = 1, 64 rows a block), f32
-// flash_mla.  (DeepSeek's naive form, (192, 128), is repro_flash_attention's.)
+// if asked; scale multiplies q.k (log2(e) is applied here).  bf16 runs
+// flash_mla_wgmma (wgmma = 1) with the plan (chunk, nsplit) of
+// flash_attention.py::mla_wgmma_plan (nsplit <= 8, one cluster; q and k
+// TMA-ready: strides multiples of 16 bytes).  f32 runs flash_mla with
+// mla_plan's, and part_o (nsplit,b,sq,h,512) and part_ml (nsplit,b,sq,h,2)
+// are its f32 scratch when nsplit > 1.  (DeepSeek's naive form, (192,
+// 128), is repro_flash_attention's.)
 extern "C" int repro_flash_mla(
     const void* q, const void* k, const void* v, void* out, void* part_o,
     void* part_ml, int dtype, int b, int sq, int h, int n, int sk, int ek,
     int ev, int kv_len, int q_offset, int causal, float scale, int chunk,
     int nsplit, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksn, long long vsb, long long vss,
-    long long vsn, int mma, void* stream) {
+    long long vsn, int wgmma, void* stream) {
   if (kv_len < 0 || kv_len > sk || q_offset < 0 || ek != 576 || ev != 512)
     return cudaErrorInvalidValue;
+  const float scale2 = scale * 1.4426950408889634f;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kBF16 && wgmma) {
+    const int seen = q_offset + sq < kv_len ? q_offset + sq : kv_len;
+    const int keys = causal ? seen : kv_len;
+    if ((long long)chunk * nsplit < keys) return cudaErrorInvalidValue;
+    const repro_mla::WgArgs a{static_cast<__nv_bfloat16*>(out), nullptr,
+                              sq, h, n, sk, kv_len, q_offset, causal, chunk,
+                              nsplit, scale2};
+    return repro_mla::launch_wgmma(flash_mla_wgmma, q, k, a, b, qsb, qss,
+                                   qsh, ksb, kss, ksn, st);
+  }
+  if (wgmma || dtype != repro::kF32) return cudaErrorInvalidValue;
   repro_mla::Args a{q, k, nullptr, out, static_cast<float*>(part_o),
                     static_cast<float*>(part_ml), b, sq, h, n, sk, kv_len,
-                    q_offset, causal, chunk, nsplit,
-                    scale * 1.4426950408889634f, qsb, qss, qsh, ksb, kss,
-                    ksn};
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16 && mma && chunk % repro_mla::kMmaKeys == 0)
-    return repro_mla::launch_rows<__nv_bfloat16, 512>(
-        flash_mla_mma, flash_mla_combine<__nv_bfloat16, 512>, a,
-        repro_mla::kMmaRows, repro_mla::kMmaSmem, st);
-  if (mma || dtype != repro::kF32) return cudaErrorInvalidValue;
+                    q_offset, causal, chunk, nsplit, scale2, qsb, qss, qsh,
+                    ksb, kss, ksn};
   return repro_mla::launch<float, 576, 512>(
       flash_mla<float, 576, 512>, flash_mla_combine<float, 512>, a, st);
 }

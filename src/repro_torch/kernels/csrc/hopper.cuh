@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // shared-memory addresses, mbarriers, TMA tile loads and their tensor maps,
 // bulk copies, wgmma shared-memory descriptors, fences and the few wgmma
-// shapes the kernels issue (bf16 for K2 and its backward, s8 for K4);
+// shapes the kernels issue (bf16 for K2, its backward and K1's and K2's
+// MLA mode, s8 for K4), named barriers;
 // cp.async and the mma.sync products of K5 and its backward (bf16, and
 // TF32 with an operand split into two TF32 halves).
 //
@@ -153,6 +154,34 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 __device__ __forceinline__ void fence_regs(int (&r)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// the same for a wgmma A fragment held in registers
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// blocks in this block's thread-block cluster (1 without a cluster)
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// -- named barriers (id 0 is __syncthreads') -----------------------------------
+
+// wait until `threads` threads (a multiple of 32) have arrived at barrier
+// `id`, this one included
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// arrive at barrier `id` without waiting (the producer's side of a
+// hand-off whose consumer waits with named_sync)
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 #define REPRO_F8_AT(d, o)                                                  \

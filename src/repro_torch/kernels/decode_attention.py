@@ -17,11 +17,13 @@ MLA mode (values narrower than keys, or an explicit ``scale``;
 DeepSeek's absorbed decode, ``repro/models/mla.py``) at (q·k, v) = (576,
 512): the 128 query heads over one latent row per position (n = 1; v
 must be the view of k's first 512 columns, which the kernel reads from
-the K tile), in bf16 on the tensor cores (``decode_mla_mma``, K2's
-absorbed loop with one query a row), in f32 on the CUDA cores
-(``decode_mla``; ``flash_attention.mla_kernel_for``), the key range split
-by ``flash_attention.mla_plan`` and folded by ``decode_mla_combine``.
-Any other pair of widths, or values apart from the keys, raises.
+the K tile), in bf16 on wgmma (``decode_mla_wgmma``, K2's absorbed loop
+with one query a row: one launch, the key range split by
+``flash_attention.mla_wgmma_plan`` into at most 8 blocks a row tile that
+merge inside their cluster), in f32 on the CUDA cores (``decode_mla``;
+``flash_attention.mla_kernel_for``), split by ``flash_attention.mla_plan``
+and folded by ``decode_mla_combine``.  Any other pair of widths, or
+values apart from the keys, raises.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import F, I, L, P, require
 from repro_torch.kernels.flash_attention import (aliases_keys,
                                                  mla_kernel_for, mla_plan,
-                                                 rows_aligned)
+                                                 mla_wgmma_plan,
+                                                 rows_aligned, tma_strides)
 
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 16          # query heads per kv head (the largest template)
@@ -177,7 +180,8 @@ def run_mla(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             lengths: torch.Tensor, *, scale: Optional[float] = None,
             nsplit: Optional[int] = None) -> torch.Tensor:
     """The MLA mode of :func:`decode_attention`; ``nsplit`` forces the
-    number of key splits (else ``mla_plan``'s)."""
+    number of key splits (else ``mla_wgmma_plan``'s in bf16, ``mla_plan``'s
+    in f32)."""
     _build.check_cuda("decode_attention", [q, k_cache, v_cache, lengths])
     require(q.dim() == 3 and k_cache.dim() == 4 and v_cache.dim() == 4
             and v_cache.shape[:3] == k_cache.shape[:3],
@@ -205,22 +209,28 @@ def run_mla(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   t.clone(memory_format=torch.contiguous_format)
                   for t in (q, k_cache))
     kernel = mla_kernel_for(q.dtype, e)
-    chunk, nsplit = mla_plan(b, n, h // n, S, nsplit, kernel)
+    wgmma = kernel == "flash_mla_wgmma"
     out = torch.empty((b, h, ev), dtype=q.dtype, device=q.device)
     part_o = part_ml = None
-    if nsplit > 1:
-        part_o = torch.empty((nsplit, b * h, ev), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((nsplit, b * h, 2), dtype=torch.float32,
-                              device=q.device)
+    if wgmma:
+        chunk, nsplit = mla_wgmma_plan(b, n, h // n, 1, S, nsplit)
+        qsb, _, qsh = tma_strides(q[:, None])
+        kst = tma_strides(k_cache)
+    else:
+        chunk, nsplit = mla_plan(b, n, h // n, S, nsplit)
+        (qsb, qsh), kst = q.stride()[:2], k_cache.stride()[:3]
+        if nsplit > 1:
+            part_o = torch.empty((nsplit, b * h, ev), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((nsplit, b * h, 2), dtype=torch.float32,
+                                  device=q.device)
     scale = e ** -0.5 if scale is None else float(scale)
     lib = _build.library("decode_attention", _SIG)
     rc = lib.repro_decode_mla(
         q.data_ptr(), k_cache.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), _ptr(part_o), _ptr(part_ml),
         _build.DTYPE_CODES[q.dtype], b, h, n, S, e, ev, scale, chunk,
-        nsplit, q.stride(0), q.stride(1), *k_cache.stride()[:3],
-        int(kernel == "flash_mla_mma"), _build.stream_ptr(q))
+        nsplit, qsb, qsh, *kst, int(wgmma), _build.stream_ptr(q))
     _build.check(lib, rc, "decode_attention (MLA mode)")
     launches.add()
     mla_launches.add()

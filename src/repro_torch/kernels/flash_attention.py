@@ -24,10 +24,12 @@ MLA mode (:func:`is_mla`: values narrower than keys, or an explicit
 ``scale``, at any widths but the naive pair) is the absorbed form,
 ``MLA_DIMS``: the prefill chunk over the latent cache (576, 512; v a view
 of k's first 512 columns, n = 1, g = 128).  :func:`mla_kernel_for` picks
-``flash_mla_mma`` (the tensor cores) in bf16 and ``flash_mla`` (CUDA
-cores) in f32; the key range is split by :func:`mla_plan` and the splits
-folded by ``flash_mla_combine``.  Any other pair of widths, or values
-apart from the keys, raises.
+``flash_mla_wgmma`` (wgmma, TMA-fed tiles) in bf16, whose key range
+:func:`mla_wgmma_plan` splits into at most 8 blocks a row tile, merged
+inside their thread-block cluster in the same launch, and ``flash_mla``
+(CUDA cores) in f32, split by :func:`mla_plan` and folded by
+``flash_mla_combine``.  Any other pair of widths, or values apart from
+the keys, raises.
 
 Training: ``flash_attention(..., return_lse=True)`` also returns each
 query row's natural-log LSE, f32 (b, h, sq), which the kernels write when
@@ -53,8 +55,11 @@ KEY_TILE = 64           # keys per K/V tile
 SMS = 132               # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_TILES = 2     # key tiles a split must have to be worth a combine
 MLA_DIMS = ((576, 512),)   # (q·k, v) widths of the MLA mode: absorbed
-MLA_ROWS = {"flash_mla": 32, "flash_mla_mma": 64}   # rows of a block
-MLA_KEYS = 32           # keys of an MLA tile
+MLA_ROWS = 32           # rows of a flash_mla block (f32)
+MLA_KEYS = 32           # keys of an MLA tile (both kernels)
+MLA_MAX_SPLIT = 8       # bf16: splits of a row tile, one cluster
+MLA_SPLIT_TILES = 2     # bf16: key tiles a split takes at least
+MLA_SPLIT_FROM = 7      # bf16: key tiles from which a row tile splits
 _SIG = {"repro_flash_attention": [P] * 8 + [I] * 12 + [F] + [L] * 9
         + [I] * 3 + [P],
         "repro_flash_mla": [P] * 6 + [I] * 11 + [F] + [I] * 2 + [L] * 9
@@ -213,7 +218,8 @@ def run_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             nsplit: Optional[int] = None) -> torch.Tensor:
     """The MLA mode of :func:`flash_attention`, the absorbed form (the
     kernel of :func:`mla_kernel_for`); ``nsplit`` forces the number of key
-    splits (else :func:`mla_plan`'s)."""
+    splits (else :func:`mla_wgmma_plan`'s in bf16, :func:`mla_plan`'s in
+    f32)."""
     _build.check_cuda("flash_attention", [q, k, v])
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4
             and v.shape[:3] == k.shape[:3],
@@ -242,22 +248,27 @@ def run_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v = k[..., :ev]     # the K tile holds the values: keep v k's view
     kernel = mla_kernel_for(q.dtype, e)
     keys = min(kv_len, q_offset + sq) if causal else kv_len
-    chunk, nsplit = mla_plan(b, n, sq * (h // n), keys, nsplit, kernel)
     out = torch.empty((b, sq, h, ev), dtype=q.dtype, device=q.device)
     part_o = part_ml = None
-    if nsplit > 1:
-        part_o = torch.empty((nsplit, b * sq * h, ev), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((nsplit, b * sq * h, 2), dtype=torch.float32,
-                              device=q.device)
+    if kernel == "flash_mla_wgmma":
+        chunk, nsplit = mla_wgmma_plan(b, n, h // n, sq, keys, nsplit)
+        qst, kst = tma_strides(q), tma_strides(k)
+    else:
+        chunk, nsplit = mla_plan(b, n, sq * (h // n), keys, nsplit)
+        qst, kst = q.stride()[:3], k.stride()[:3]
+        if nsplit > 1:
+            part_o = torch.empty((nsplit, b * sq * h, ev),
+                                 dtype=torch.float32, device=q.device)
+            part_ml = torch.empty((nsplit, b * sq * h, 2),
+                                  dtype=torch.float32, device=q.device)
     scale = e ** -0.5 if scale is None else float(scale)
     lib = _build.library("flash_attention", _SIG)
     rc = lib.repro_flash_mla(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.ptr(part_o), _build.ptr(part_ml), _build.DTYPE_CODES[q.dtype], b, sq, h,
-        n, sk, e, ev, kv_len, q_offset, int(causal), scale, chunk, nsplit,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(kernel == "flash_mla_mma"), _build.stream_ptr(q))
+        _build.ptr(part_o), _build.ptr(part_ml), _build.DTYPE_CODES[q.dtype],
+        b, sq, h, n, sk, e, ev, kv_len, q_offset, int(causal), scale, chunk,
+        nsplit, *qst, *kst, *v.stride()[:3],
+        int(kernel == "flash_mla_wgmma"), _build.stream_ptr(q))
     _build.check(lib, rc, "flash_attention (MLA mode)")
     launches.add()
     mla_launches.add()
@@ -282,33 +293,70 @@ def aliases_keys(k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def mla_kernel_for(dtype: torch.dtype, e: int) -> str:
-    """The MLA mode's kernel, the absorbed form's (q·k ``e`` = 576): the
-    tensor cores in bf16, the CUDA cores in f32 (no full-precision mma).
-    Other widths are not MLA mode (the naive form runs on the generic
-    route) and raise."""
+    """The MLA mode's kernel, the absorbed form's (q·k ``e`` = 576): wgmma
+    in bf16 (K1's counterpart is ``decode_mla_wgmma``), the CUDA cores in
+    f32 (no full-precision wgmma).  Other widths are not MLA mode (the
+    naive form runs on the generic route) and raise."""
     require(e == MLA_DIMS[0][0], f"flash_attention: q·k width {e} is not "
             f"the absorbed MLA form's {MLA_DIMS[0][0]}")
-    return "flash_mla_mma" if dtype == torch.bfloat16 else "flash_mla"
+    return "flash_mla_wgmma" if dtype == torch.bfloat16 else "flash_mla"
 
 
 def mla_plan(b: int, n: int, rows: int, keys: int,
-             nsplit: Optional[int] = None, kernel: str = "flash_mla"):
-    """-> (chunk, nsplit) of the MLA mode: keys per split (a multiple of
-    MLA_KEYS) and the number of splits.  A block of ``kernel`` takes
-    MLA_ROWS[kernel] of the ``rows`` = g·sq (position, head) rows of a
-    (b, kv head); the key range (``keys``, the most any row sees) is split
-    only while the b·n·⌈rows/MLA_ROWS⌉ blocks leave the card under two a
-    SM (one for flash_mla_mma, whose registers and shared memory hold one
-    block an SM), down to one key tile a split (the single-token decode:
-    4 blocks of 128 heads).  The plan knows no widths.  ``nsplit`` forces the split count (a check
-    of the combine)."""
-    mtiles = -(-rows // MLA_ROWS[kernel])
+             nsplit: Optional[int] = None):
+    """-> (chunk, nsplit) of the f32 MLA kernels (``flash_mla``,
+    ``decode_mla``): keys per split (a multiple of MLA_KEYS) and the number
+    of splits.  A block takes MLA_ROWS of the ``rows`` = g·sq (position,
+    head) rows of a (b, kv head); the key range (``keys``, the most any
+    row sees) is split only while the b·n·⌈rows/MLA_ROWS⌉ blocks leave the
+    card under two a SM, down to one key tile a split (the single-token
+    decode: 4 blocks of 128 heads), and the splits are folded by a second
+    kernel.  ``nsplit`` forces the split count (a check of the
+    combine)."""
+    mtiles = -(-rows // MLA_ROWS)
     tiles = max(1, -(-keys // MLA_KEYS))
-    per_sm = 1 if kernel == "flash_mla_mma" else 2
     if nsplit is None:
-        nsplit = max(1, min(-(-per_sm * SMS // (b * n * mtiles)), tiles))
+        nsplit = max(1, min(-(-2 * SMS // (b * n * mtiles)), tiles))
     require(1 <= nsplit <= tiles, f"flash_attention: {nsplit} splits of "
             f"{tiles} key tiles")
+    per = -(-tiles // nsplit)
+    return per * MLA_KEYS, -(-tiles // per)
+
+
+def mla_row_tiles(g: int):
+    """-> (gb, pb, parts): a 64-row block of the bf16 MLA kernels takes gb
+    heads of a kv head's group of g at each of pb positions; a group wider
+    than 64 heads takes ``parts`` blocks a position (``mla.cuh``'s
+    ``WgRows``)."""
+    if g < M_TILE:
+        return g, M_TILE // g, 1
+    return M_TILE, 1, -(-g // M_TILE)
+
+
+def mla_wgmma_plan(b: int, n: int, g: int, sq: int, keys: int,
+                   nsplit: Optional[int] = None):
+    """-> (chunk, nsplit) of the bf16 MLA kernels (``flash_mla_wgmma``,
+    ``decode_mla_wgmma``): keys per split (a multiple of MLA_KEYS) and the
+    splits of each row tile, which run as one thread-block cluster and
+    merge in the same launch.  A block holds one SM (its 226 KB of shared
+    memory), so the key range (``keys``, the most any row sees) is split
+    only while the b·n·tiles blocks leave SMs idle, into at most
+    MLA_MAX_SPLIT splits (the portable cluster size) of at least
+    MLA_SPLIT_TILES key tiles, and only from MLA_SPLIT_FROM tiles on: the
+    cluster's merge costs about what four tiles do (``mla_sweep.py``), so
+    the decode keeps one split up to 192 keys, takes 6 at 333 and 8 at 923.
+    Causal row tiles run longest first (the kernel reverses the grid's row
+    order).  ``nsplit`` forces the split count."""
+    gb, pb, parts = mla_row_tiles(g)
+    blocks = b * n * parts * -(-sq // pb)
+    tiles = max(1, -(-keys // MLA_KEYS))
+    if nsplit is None:
+        most = max(1, min(MLA_MAX_SPLIT, SMS // blocks))
+        nsplit = 1 if tiles < MLA_SPLIT_FROM else -(-tiles // max(
+            MLA_SPLIT_TILES, -(-tiles // most)))
+    require(1 <= nsplit <= min(tiles, MLA_MAX_SPLIT),
+            f"flash_attention: {nsplit} splits of {tiles} key tiles (at "
+            f"most {MLA_MAX_SPLIT}, one cluster)")
     per = -(-tiles // nsplit)
     return per * MLA_KEYS, -(-tiles // per)
 

@@ -74,12 +74,12 @@ class Kernel:
 KERNELS = (
     Kernel("decode_attention", _decode,
            "src/repro/kernels/decode_attention.py:25",
-           ("decode_attn", "decode_mla", "decode_mla_mma",
+           ("decode_attn", "decode_mla", "decode_mla_wgmma",
             "decode_mla_combine")),
     Kernel("flash_attention", _flash,
            "src/repro/kernels/flash_attention.py:26",
            ("flash_fwd_wgmma", "flash_combine", "flash_fwd", "flash_mla",
-            "flash_mla_mma", "flash_mla_combine")),
+            "flash_mla_wgmma", "flash_mla_combine")),
     Kernel("topk_retrieval", _topk,
            "src/repro/kernels/topk_retrieval.py:22",
            ("topk_partial", "topk_merge")),

@@ -693,7 +693,7 @@ def test_mla_flash_kernel_absorbed_matches_plain(cuda, b, sq, h, sk,
     k, v = _latent(rng, b, sk, dtype, cuda, slots=1024)
     kv_len = min(sk, q_offset + sq)
     assert k2.mla_kernel_for(q.dtype, 576) == (
-        "flash_mla_mma" if dtype == "bfloat16" else "flash_mla")
+        "flash_mla_wgmma" if dtype == "bfloat16" else "flash_mla")
     got = k2.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                              kv_len=kv_len, scale=MLA_SCALE)
     want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
@@ -711,9 +711,9 @@ def test_mla_flash_kernel_absorbed_matches_plain(cuda, b, sq, h, sk,
 @pytest.mark.parametrize("nsplit", [1, 3, 7])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_mla_flash_kernel_absorbed_forced_splits(cuda, nsplit, dtype):
-    """Absorbed chunks with the key range forced into 1, 3 and 7 splits
-    (folded by flash_mla_combine): bf16 on the tensor cores, f32 on the
-    CUDA cores."""
+    """Absorbed chunks with the key range forced into 1, 3 and 7 splits:
+    bf16 on wgmma (merged inside their cluster), f32 on the CUDA cores
+    (folded by flash_mla_combine)."""
     from repro_torch.kernels import flash_attention as k2
     rng = np.random.default_rng(44)
     q = _dev(rng, (1, 40, 16, 576), dtype, cuda)
@@ -727,6 +727,58 @@ def test_mla_flash_kernel_absorbed_forced_splits(cuda, nsplit, dtype):
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
     _near_exact_close(got, exact, dtype, 261)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["decode", "absorbed"])
+def test_mla_wgmma_runs_are_bit_equal(cuda, form):
+    """Two runs of a bf16 MLA kernel give equal bits: K1 over 923 keys
+    (the plan splits them across a cluster, merged in a fixed order) and
+    K2's 128-token chunk at offset 772."""
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k2
+    rng = np.random.default_rng(45)
+    if form == "decode":
+        q = _dev(rng, (1, 128, 576), "bfloat16", cuda)
+        k, v = _latent(rng, 1, 923, "bfloat16", cuda, slots=1024)
+        lens = torch.tensor([923], dtype=torch.int32, device=cuda)
+        assert k2.mla_wgmma_plan(1, 1, 128, 1, 923)[1] > 1
+
+        def call():
+            return k1.run_mla(q, k, v, lens, scale=MLA_SCALE)
+    else:
+        q = _dev(rng, (1, 128, 128, 576), "bfloat16", cuda)
+        k, v = _latent(rng, 1, 900, "bfloat16", cuda, slots=1024)
+
+        def call():
+            return k2.run_mla(q, k, v, causal=True, q_offset=772,
+                              scale=MLA_SCALE)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_mla_split_decode_is_one_launch(cuda):
+    """A split bf16 decode (923 keys, the plan's splits) is one launch of
+    decode_mla_wgmma: a torch.profiler trace of the call holds that kernel
+    once and no *_combine kernel (no f32 partials, no second pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as k1
+    rng = np.random.default_rng(46)
+    q = _dev(rng, (1, 128, 576), "bfloat16", cuda)
+    k, v = _latent(rng, 1, 923, "bfloat16", cuda, slots=1024)
+    lens = torch.tensor([923], dtype=torch.int32, device=cuda)
+    k1.run_mla(q, k, v, lens, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k1.run_mla(q, k, v, lens, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("decode_mla_wgmma" in nm for nm in names) == 1, names
+    assert not any("combine" in nm for nm in names), names
 
 
 @pytest.mark.cuda

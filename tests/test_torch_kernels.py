@@ -815,38 +815,75 @@ def test_ssd_mma_plan_fits_shared_memory_and_fills_the_card():
 
 # -- the MLA mode of K1 and K2 (host side) ------------------------------------
 
-@pytest.mark.parametrize("b,n,rows,keys,want", [
-    (1, 1, 128, 923, (32, 29)),     # deepseek decode: 4 blocks of 128 heads
-    (1, 1, 128, 64, (32, 2)),
-    (1, 1, 128 * 128, 900, (928, 1)),   # a 128-token prefill chunk
-    (1, 128, 150, 150, (160, 1)),   # many kv heads: no split
-    (1, 8, 150, 150, (32, 5)),      # few kv heads: split
+@pytest.mark.parametrize("b,n,g,sq,keys,want", [
+    (1, 1, 128, 1, 923, (128, 8)),   # deepseek decode: 2 row tiles, split
+    (1, 1, 128, 1, 333, (64, 6)),
+    (1, 1, 128, 1, 65, (96, 1)),     # a short row: one split a row tile
+    (1, 1, 128, 128, 900, (928, 1)),    # a 128-token prefill chunk
+    (1, 8, 1, 150, 600, (128, 5)),      # few kv heads: split
 ])
-def test_mla_plan_at_path_shapes(b, n, rows, keys, want):
-    """Splits of whole key tiles cover the key range, only while the
-    b·n·⌈rows/32⌉ blocks leave the card under two a SM (the plan knows no
-    widths: the absorbed form's n = 1 and the rest alike)."""
+def test_mla_plan_at_path_shapes(b, n, g, sq, keys, want):
+    """The bf16 plan (mla_wgmma_plan): splits of whole key tiles cover the
+    key range, at most MLA_MAX_SPLIT of them (one cluster), each of at
+    least MLA_SPLIT_TILES tiles, from MLA_SPLIT_FROM key tiles on, and
+    only while the b·n·tiles 64-row blocks (one an SM) leave SMs idle."""
     from repro_torch.kernels import flash_attention as k2
-    chunk, nsplit = k2.mla_plan(b, n, rows, keys)
+    chunk, nsplit = k2.mla_wgmma_plan(b, n, g, sq, keys)
     assert (chunk, nsplit) == want
-    assert chunk % k2.MLA_KEYS == 0
+    assert chunk % k2.MLA_KEYS == 0 and nsplit <= k2.MLA_MAX_SPLIT
     assert (nsplit - 1) * chunk < keys <= nsplit * chunk
-    blocks = b * n * -(-rows // k2.MLA_ROWS["flash_mla"])
+    gb, pb, parts = k2.mla_row_tiles(g)
+    assert gb * pb <= k2.M_TILE and gb * parts >= g
+    blocks = b * n * parts * -(-sq // pb)
     if nsplit > 1:
-        assert blocks * (nsplit - 1) < 2 * k2.SMS
+        assert blocks * nsplit <= k2.SMS
+        assert chunk >= k2.MLA_SPLIT_TILES * k2.MLA_KEYS
+        assert keys > (k2.MLA_SPLIT_FROM - 1) * k2.MLA_KEYS
     for forced in (1, 2):
-        chunk, got = k2.mla_plan(b, n, rows, keys, forced)
+        chunk, got = k2.mla_wgmma_plan(b, n, g, sq, keys, forced)
         assert (got - 1) * chunk < keys <= got * chunk
 
 
-def test_mla_kernel_is_chosen_by_type_widths_and_layout():
-    """The tensor cores take the bf16 absorbed form, whose plan targets
-    one 64-row block an SM: a 128-token chunk's 256 blocks are not split,
-    a 16-token one's 32 are.  f32 runs the CUDA cores.  The naive form
-    (q·k 192) is no MLA mode: the generic route takes it, with its scale,
-    and the MLA kernel choice refuses it."""
+@pytest.mark.parametrize("g,sq", [(128, 1), (128, 128), (8, 40), (16, 3),
+                                  (96, 2)])
+@pytest.mark.parametrize("keys", [1, 32, 33, 65, 333, 923, 4096])
+@pytest.mark.parametrize("forced", [None, 1, 3, 8])
+def test_mla_wgmma_plan_covers_each_key_tile_once(g, sq, keys, forced):
+    """Whatever the plan, the splits of a row tile (one cluster) walk every
+    key tile exactly once, as the kernel walks them (split s from key s ·
+    chunk, in tiles of MLA_KEYS, up to the keys its rows see), there are
+    at most 8 of them, none is empty, and keys that fit one tile get one
+    split.  A forced count past the key tiles or the cluster raises."""
     from repro_torch.kernels import flash_attention as k2
-    assert k2.mla_kernel_for(torch.bfloat16, 576) == "flash_mla_mma"
+    tiles = -(-keys // k2.MLA_KEYS)
+    if forced is not None and forced > tiles:
+        with pytest.raises(ValueError, match="splits"):
+            k2.mla_wgmma_plan(1, 1, g, sq, keys, forced)
+        return
+    chunk, nsplit = k2.mla_wgmma_plan(1, 1, g, sq, keys, forced)
+    assert 1 <= nsplit <= k2.MLA_MAX_SPLIT and chunk % k2.MLA_KEYS == 0
+    walked = []
+    for split in range(nsplit):
+        lo, hi = split * chunk, min(keys, (split + 1) * chunk)
+        assert hi > lo
+        walked += range(lo // k2.MLA_KEYS, -(-hi // k2.MLA_KEYS))
+    assert walked == list(range(tiles))
+    if keys <= k2.MLA_KEYS:
+        assert nsplit == 1
+    gb, pb, parts = k2.mla_row_tiles(g)
+    assert (gb, pb) == ((g, k2.M_TILE // g) if g < k2.M_TILE
+                        else (k2.M_TILE, 1))
+    assert parts == -(-g // gb)
+
+
+def test_mla_kernel_is_chosen_by_type_widths_and_layout():
+    """wgmma takes the bf16 absorbed form, whose plan targets one 64-row
+    block an SM: a 128-token chunk's 256 blocks are not split, a 16-token
+    one's 32 are.  f32 runs the CUDA cores.  The naive form (q·k 192) is
+    no MLA mode: the generic route takes it, with its scale, and the MLA
+    kernel choice refuses it."""
+    from repro_torch.kernels import flash_attention as k2
+    assert k2.mla_kernel_for(torch.bfloat16, 576) == "flash_mla_wgmma"
     assert k2.mla_kernel_for(torch.float32, 576) == "flash_mla"
     for dt in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="absorbed"):
@@ -858,16 +895,20 @@ def test_mla_kernel_is_chosen_by_type_widths_and_layout():
     assert k2.is_mla(naive[0], naive[0], 0.07)      # a scale off the pair
     assert not k2.is_mla(naive[1], naive[1], None)
     assert k2.NAIVE_MLA in k2.HEAD_DIMS and k2.MLA_DIMS == ((576, 512),)
-    assert k2.mla_plan(1, 1, 128 * 128, 900, kernel="flash_mla_mma") == \
-        (928, 1)
-    assert k2.mla_plan(1, 1, 16 * 128, 400, kernel="flash_mla_mma") == \
-        (96, 5)
+    assert k2.mla_wgmma_plan(1, 1, 128, 128, 900) == (928, 1)
+    assert k2.mla_wgmma_plan(1, 1, 128, 16, 400) == (128, 4)
 
 
 def test_mla_plan_refuses_more_splits_than_key_tiles():
+    """Both plans refuse more splits than key tiles; the bf16 one also
+    more than one cluster holds."""
     from repro_torch.kernels import flash_attention as k2
     with pytest.raises(ValueError, match="splits"):
         k2.mla_plan(1, 1, 128, 64, 3)
+    with pytest.raises(ValueError, match="splits"):
+        k2.mla_wgmma_plan(1, 1, 128, 1, 64, 3)
+    with pytest.raises(ValueError, match="cluster"):
+        k2.mla_wgmma_plan(1, 1, 128, 1, 923, k2.MLA_MAX_SPLIT + 1)
 
 
 def test_mla_bytes_count_a_latent_row_once():
@@ -965,5 +1006,9 @@ def test_mla_wrappers_pass_what_the_entry_points_declare(form, monkeypatch):
         assert args[1] == args[2] == lat.data_ptr()      # v is k's view
     if form == "naive":
         assert args[13:16] == (40, 192, 128)    # sk, the key and value widths
-    else:   # bf16 at q·k 576 runs on the tensor cores (*_mla_mma)
+    else:   # bf16 at q·k 576 runs on wgmma (*_mla_wgmma), in one launch
         assert args[-2] == 1
+        assert args[4] is None and args[5] is None   # no f32 partials
+        plan = (args[14:16] if form == "decode" else args[18:20])
+        sq = 1 if form == "decode" else 8
+        assert tuple(plan) == k2.mla_wgmma_plan(1, 1, 128, sq, 40)
