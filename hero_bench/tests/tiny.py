@@ -1,0 +1,29 @@
+"""Tiny stand-ins of the cells for the CPU tests: the same files'
+structure at widths a test run can hold."""
+from __future__ import annotations
+
+import copy
+import json
+
+from hero_bench import registry
+
+CELL = "qwen3-1.7b-train-4x4096"
+
+TINY_DENSE = {"num_hidden_layers": 2, "hidden_size": 64,
+              "num_attention_heads": 4, "num_key_value_heads": 2,
+              "head_dim": 16, "intermediate_size": 128, "vocab_size": 512,
+              "tie_word_embeddings": True, "rope_theta": 1000000,
+              "rms_norm_eps": 1e-06}
+
+
+def train_cell(name: str = CELL):
+    wl = copy.deepcopy(registry.load_workload(name))
+    conf = copy.deepcopy(registry.load_config(wl["config"]))
+    conf.update(TINY_DENSE)
+    conf["dtype"] = "float32"
+    wl["mix"].update(batch=2, seq=16)
+    return wl, conf
+
+
+def bench() -> dict:
+    return json.loads((registry.REPO / "BENCHMARK.json").read_text())
