@@ -10,7 +10,6 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-hybrid
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-moe
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve --path train-parts
 
 (``--device cpu`` rehearses the script with the reduced models on the CPU,
 where no kernel runs on a device.)
@@ -46,10 +45,6 @@ width (bf16, its remat "full") with its depth cut to ``MOE_LAYERS`` (the
 first-k dense block and one MoE block) and its routed experts to
 ``MOE_EXPERTS`` (:func:`moe_train_config`) on one fixed 2 x 512 batch;
 its attention is MLA's naive form, K2 at keys 192, values 128.
-``--path train-parts`` is not profiled: for each remat policy ("dots",
-"none", "full") it times the parts of a step of the same model on the
-same batch, each alone between two syncs (``train_step_parts``), and
-prints them as JSON.
 Each runs once unprofiled (warm-up: allocator, cuBLAS handles, kernel
 build) and once under ``torch.profiler``, and prints as JSON: the wall
 time of the profiled run, the device's busy share of it (the union of
@@ -391,64 +386,6 @@ def train_runner(dev: torch.device,
     return run
 
 
-def train_step_parts(dev: torch.device, remat: str) -> dict:
-    """The loss forward, forward + backward and AdamW update of one step
-    of ``train_runner``'s model with ``remat``, each timed alone between
-    two syncs (host clock, ms, median of 3 after 2 warm-up steps), and the
-    whole step; the peak memory of those 3 rounds."""
-    import dataclasses
-    import statistics
-
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.launch.train import synthetic_data
-    from repro_torch.models import lm
-    from repro_torch.training import (AdamWConfig, TrainConfig, adamw_update,
-                                      make_train_step)
-    from repro_torch.training.train_loop import value_and_grad
-    cfg = get_config(TRAIN_ARCH)
-    if dev.type != "cuda":
-        cfg = reduced(cfg)
-    cfg = dataclasses.replace(cfg, remat=remat)
-    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
-    init, step = make_train_step(cfg, tcfg, dev)
-    params, state = init(18)
-    batch = next(synthetic_data(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=18,
-                                device=dev))
-
-    def loss(p, b):
-        return lm.loss_fn(p, cfg, b)
-
-    def synced(fn):
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(dev)
-        return out, 1e3 * (time.perf_counter() - t0)
-    for _ in range(2):
-        params, state, _ = step(params, state, batch)
-    times: Dict[str, List[float]] = collections.defaultdict(list)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        times["forward_ms"].append(synced(lambda: loss(params, batch))[1])
-        (_, grads), t = synced(lambda: value_and_grad(loss, params, batch))
-        times["forward_backward_ms"].append(t)
-        times["adamw_ms"].append(synced(lambda: adamw_update(
-            grads, state, params, tcfg.optimizer))[1])
-        del grads
-        times["step_ms"].append(synced(lambda: step(params, state,
-                                                    batch))[1])
-    out = {k: statistics.median(v) for k, v in times.items()}
-    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
-                       if dev.type == "cuda" else None)
-    return out
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def serve_once(stage_fns) -> dict:
     """One isolated W2 query; -> its wall time and per-stage latencies."""
     traces = sample_traces("finqabench", 1, seed=1)
@@ -472,22 +409,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None)
     ap.add_argument("--path", choices=("w2", *ENGINE_ARCHS, "zamba2-long",
-                                       *CROSS_ARCHS, *TRAIN_PATHS,
-                                       "train-parts"),
+                                       *CROSS_ARCHS, *TRAIN_PATHS),
                     default="w2")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    if args.path == "train-parts":
-        out = {"device": (torch.cuda.get_device_name(0)
-                          if dev.type == "cuda" else "cpu"),
-               "path": args.path, "arch": TRAIN_ARCH,
-               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
-        for remat in ("dots", "none", "full"):
-            out[remat] = train_step_parts(dev, remat)
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        print(json.dumps(out, indent=1))
-        return out
     if args.path in CROSS_ARCHS:
         run_once = cross_runner(args.path, dev)
     elif args.path in ENGINE_ARCHS:

@@ -57,6 +57,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch import torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import SPAN_BLOCK, span
 from repro_torch.kernels.ref import NEG_POS
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -455,15 +456,23 @@ def _remat(fn, cfg: ModelConfig, mode: str):
     block: in "train" mode with grad on, "none" keeps everything, "dots"
     keeps only :func:`_save_dots`' outputs, any other policy ("full")
     recomputes the block in the backward.  Remat changes memory, never
-    values."""
-    if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
+    values.  In "train" mode the block runs in an ``lm.block`` span
+    (``core/spans.py``), inside the checkpointed function, so a recompute
+    records it again."""
+    if mode != "train":
         return fn
+
+    def block(*args, **kwargs):
+        with span(SPAN_BLOCK):
+            return fn(*args, **kwargs)
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return block
     context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
                                  _save_dots)
                if cfg.remat == "dots" else ckpt.noop_context_fn)
 
     def run(*args, **kwargs):
-        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+        return ckpt.checkpoint(block, *args, use_reentrant=False,
                                context_fn=context, **kwargs)
     return run
 

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch import torch_dtype
+from repro_torch.core.spans import SPAN_OPTIMIZER, span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -78,25 +79,26 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
                  ) -> Tuple[nn.Module, AdamWState, Dict[str, torch.Tensor]]:
     """One step from ``grads`` ({name: tensor}, every parameter's):
     updates ``params`` and the moments in place -> (params, new state,
-    {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    step = state.step + 1
-    lr = _schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(b1, step.float())
-    bc2 = 1 - torch.pow(b2, step.float())
-    for name, p in params.named_parameters():
-        m, v = state.m[name], state.v[name]
-        g = grads[name].float() * scale
-        m1 = b1 * m.float() + (1 - b1) * g
-        v1 = b2 * v.float() + (1 - b2) * torch.square(g)
-        mh, vh = m1 / bc1, v1 / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
-            p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
-        m.copy_(m1.to(m.dtype))
-        v.copy_(v1.to(v.dtype))
-    return params, AdamWState(step, state.m, state.v), {
-        "grad_norm": gnorm, "lr": lr}
+    {"grad_norm", "lr"}), inside a ``train.optimizer`` span."""
+    with span(SPAN_OPTIMIZER):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        step = state.step + 1
+        lr = _schedule(cfg, step)
+        b1, b2 = cfg.b1, cfg.b2
+        bc1 = 1 - torch.pow(b1, step.float())
+        bc2 = 1 - torch.pow(b2, step.float())
+        for name, p in params.named_parameters():
+            m, v = state.m[name], state.v[name]
+            g = grads[name].float() * scale
+            m1 = b1 * m.float() + (1 - b1) * g
+            v1 = b2 * v.float() + (1 - b2) * torch.square(g)
+            mh, vh = m1 / bc1, v1 / bc2
+            delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
+                p.float()
+            p.copy_((p.float() - lr * delta).to(p.dtype))
+            m.copy_(m1.to(m.dtype))
+            v.copy_(v1.to(v.dtype))
+        return params, AdamWState(step, state.m, state.v), {
+            "grad_norm": gnorm, "lr": lr}

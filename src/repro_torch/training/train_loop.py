@@ -21,6 +21,8 @@ from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import (SPAN_BACKWARD, SPAN_FORWARD,
+                                    SPAN_TRAIN_STEP, span)
 from repro_torch.models import build_model
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update)
@@ -44,11 +46,15 @@ def value_and_grad(model_loss, params: nn.Module, batch: Batch
                               Dict[str, torch.Tensor]]:
     """``jax.value_and_grad(loss_fn, has_aux=True)``: -> ((loss, metrics),
     {name: gradient}); a parameter the loss does not reach gets zeros, as
-    in JAX."""
-    loss, metrics = model_loss(params, batch)
+    in JAX.  The loss runs in a ``train.forward`` span and the gradients
+    in a ``train.backward`` span (``core/spans.py``)."""
+    with span(SPAN_FORWARD):
+        loss, metrics = model_loss(params, batch)
     named = list(params.named_parameters())
-    grads = torch.autograd.grad(loss, [p for _, p in named],
-                                allow_unused=True, materialize_grads=True)
+    with span(SPAN_BACKWARD):
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), {
         k: g for (k, _), g in zip(named, grads)}
 
@@ -58,32 +64,36 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),
     """-> (init, train_step): ``init(seed)`` gives trainable parameters and
     a fresh optimizer state on ``device``; ``train_step(params, state,
     batch)`` -> (params, state, metrics) with ``loss``, ``grad_norm`` and
-    ``lr`` (and ``ce``/``aux``/``mtp_ce`` without accumulation)."""
+    ``lr`` (and ``ce``/``aux``/``mtp_ce`` without accumulation), inside a
+    ``train.step`` span."""
     model = build_model(cfg, device)
 
     def train_step(params: nn.Module, opt_state: AdamWState, batch: Batch
                    ) -> Tuple[nn.Module, AdamWState, Dict[str, Any]]:
-        accum = tcfg.grad_accum
-        if accum > 1:
-            grads: Dict[str, torch.Tensor] = {}
-            loss = 0.0
-            rows = next(iter(batch.values())).shape[0] // accum
-            for i in range(accum):
-                mb = {k: x[i * rows:(i + 1) * rows] for k, x in batch.items()}
-                (lm, _), g = value_and_grad(model.loss_fn, params, mb)
-                for k, gk in g.items():
-                    grads[k] = grads[k] + gk.float() if k in grads \
-                        else gk.float()
-                loss = loss + lm
-            grads = {k: g / accum for k, g in grads.items()}
-            loss = loss / accum
-            metrics: Dict[str, Any] = {}
-        else:
-            (loss, metrics), grads = value_and_grad(model.loss_fn, params,
-                                                    batch)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, tcfg.optimizer)
-        return params, opt_state, {**metrics, **opt_metrics, "loss": loss}
+        with span(SPAN_TRAIN_STEP):
+            accum = tcfg.grad_accum
+            if accum > 1:
+                grads: Dict[str, torch.Tensor] = {}
+                loss = 0.0
+                rows = next(iter(batch.values())).shape[0] // accum
+                for i in range(accum):
+                    mb = {k: x[i * rows:(i + 1) * rows]
+                          for k, x in batch.items()}
+                    (lm, _), g = value_and_grad(model.loss_fn, params, mb)
+                    for k, gk in g.items():
+                        grads[k] = grads[k] + gk.float() if k in grads \
+                            else gk.float()
+                    loss = loss + lm
+                grads = {k: g / accum for k, g in grads.items()}
+                loss = loss / accum
+                metrics: Dict[str, Any] = {}
+            else:
+                (loss, metrics), grads = value_and_grad(model.loss_fn,
+                                                        params, batch)
+            params, opt_state, opt_metrics = adamw_update(
+                grads, opt_state, params, tcfg.optimizer)
+            return params, opt_state, {**metrics, **opt_metrics,
+                                       "loss": loss}
 
     def init(seed: int) -> Tuple[nn.Module, AdamWState]:
         params = model.init(seed, trainable=True)

@@ -417,3 +417,84 @@ def test_only_k2_carries_a_gradient_and_inference_is_unguarded(monkeypatch):
             # wrapper's own checks
             with pytest.raises(ValueError, match="CUDA"):
                 call()
+
+
+# ---------------------------------------------------------------------------
+# the train step's profiler spans (core/spans.py)
+# ---------------------------------------------------------------------------
+
+REMATS = ["dots", "full", "none"]
+
+
+def _profiled_step(remat, profiled):
+    """One train step of reduced qwen1.5 (3 layers) under ``remat``, under
+    a CPU ``torch.profiler`` or none; -> (cfg, events or None, loss,
+    params, state)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(reduced(get_config("qwen1.5-0.5b"), layers=3),
+                              remat=remat)
+    init, step = make_train_step(cfg, TrainConfig(
+        optimizer=AdamWConfig(lr=1e-3, warmup_steps=1)), CPU)
+    params, opt = init(0)
+    batch = next(_data(cfg, B=2, S=16))
+    if not profiled:
+        params, opt, m = step(params, opt, batch)
+        return cfg, None, m["loss"], params, opt
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        params, opt, m = step(params, opt, batch)
+    return cfg, prof.events(), m["loss"], params, opt
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_train_step_spans_nest_in_order(remat):
+    from repro_torch.core import spans as S
+    cfg, events, _, _, _ = _profiled_step(remat, True)
+    got = {}
+    for e in events:
+        if e.name in S.ALL_SPANS:
+            got.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    (step,) = got[S.SPAN_TRAIN_STEP]
+    phases = [got[n] for n in (S.SPAN_FORWARD, S.SPAN_BACKWARD,
+                               S.SPAN_OPTIMIZER)]
+    assert [len(p) for p in phases] == [1, 1, 1]
+    (fw,), (bw,), (opt,) = phases
+    assert step[0] <= fw[0] < fw[1] <= bw[0] < bw[1] <= opt[0] < opt[1] \
+        <= step[1]
+    blocks = got[S.SPAN_BLOCK]
+    again = 0 if remat == "none" else cfg.num_layers
+    assert len(blocks) == cfg.num_layers + again
+    assert sum(fw[0] <= s and e <= fw[1] for s, e in blocks) == \
+        cfg.num_layers
+    assert sum(bw[0] <= s and e <= bw[1] for s, e in blocks) == again
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_a_profiler_changes_no_value_of_the_step(remat):
+    """The spans inside a selectively checkpointed block leave the saved
+    and recomputed values as they were: loss, parameters and both
+    moments bit-equal with the profiler on and off."""
+    _, _, loss0, p0, s0 = _profiled_step(remat, False)
+    _, _, loss1, p1, s1 = _profiled_step(remat, True)
+    assert torch.equal(loss0, loss1)
+    for (k, a), (_, b) in zip(p0.named_parameters(), p1.named_parameters()):
+        assert torch.equal(a, b), k
+    for k in s0.m:
+        assert torch.equal(s0.m[k], s1.m[k]), k
+        assert torch.equal(s0.v[k], s1.v[k]), k
+
+
+def test_span_is_the_shared_null_context_without_a_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import spans as S
+    off = S.span(S.SPAN_FORWARD)
+    assert off is S.span(S.SPAN_BLOCK)
+    with off:
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = S.span(S.SPAN_FORWARD)
+        assert on is not off
+        with on:
+            pass
+    assert [e.name for e in prof.events()
+            if e.name.startswith(S.PREFIX)] == [S.SPAN_FORWARD]
