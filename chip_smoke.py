@@ -153,7 +153,8 @@ failure ends the run with a non-zero exit code and no result line:
               ``launch.train.synthetic_data``: 12 AdamW steps on one
               fixed 8 x 256 batch at lr 1e-3 with a warm-up of 1 (the
               loss must fall by 0.5 or more; counters at 0 just before,
-              read just after: K2's backward 24 launches a step), its
+              read just after: K2's backward 24 launches a step, AdamW's
+              kernel pair one call a step over every leaf), its
               median step time, tokens/s and peak memory; then 8 steps
               with an async checkpoint every 4 and a restart to 12 from
               the step-8 checkpoint, whose losses must match the
@@ -193,10 +194,14 @@ failure ends the run with a non-zero exit code and no result line:
               long-context runs, the whisper and vlm runs, the deepseek
               engine and the train phases gave it, weighted by launches;
               K1's and K2's MLA mode as rows of their own; K2's and K5's
-              backwards at the shapes the train phases gave them.
+              backwards at the shapes the train phases gave them; AdamW's
+              kernel pair at each train phase's leaf set (every width,
+              its types), run with the plain loop from one state at step
+              5: p, m and v bit-equal at the kernel's clip scale, the
+              norm within rtol 1e-6; ``torch._fused_adamw_`` the yardstick.
    bench    — ``launch/kernels_bench.py``'s CSV rows at each path's most
               frequent shape of each kernel (its keys printed first),
-              every kernel and backward kernel among them.
+              every kernel, backward and optimizer kernel among them.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one GPU, no network.
@@ -315,6 +320,8 @@ def check_case(case, what):
     """The kernel against its plain version (and, where the case has one,
     against its near-exact version), or against what the case's ``want``
     gives; -> max |err| (over every output of a pair)."""
+    if "check" in case:                 # the case's own (AdamW's, bitwise)
+        return case["check"]()
     got, want = case["kernel"](), case.get("want", case["plain"])()
     if "exact" in case:
         check_close(got, case["exact"](), case["exact_tol"],
@@ -358,8 +365,8 @@ def check_topk(case, exact_ids):
 def phase_build():
     from repro_torch.kernels import _build, ops
     t0 = time.monotonic()
-    took = _build.build(k.name for k in (*ops.KERNELS,
-                                         *ops.BACKWARD_KERNELS))
+    took = _build.build(k.name for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS,
+                                         *ops.OPTIMIZER_KERNELS))
     say(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s "
         f"(nvcc {_build.nvcc()})")
     # the machine code of the redesigned kernels: wgmma (HGMMA) and TMA
@@ -1277,7 +1284,8 @@ class ShapeLog:
         self.raw = collections.defaultdict(collections.Counter)
         self._seen = None
         self.mods = {k.name: (k.module, REPLAY[k.name][0])
-                     for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)}
+                     for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS,
+                               *ops.OPTIMIZER_KERNELS)}
         self.orig = {}
 
     def __enter__(self):
@@ -1610,6 +1618,7 @@ def phase_train():
     run's losses within RESTART_TOL."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import (TRAIN_ARCH, TRAIN_BATCH,
                                                   TRAIN_SEQ)
@@ -1631,7 +1640,9 @@ def phase_train():
                                     log_every=1, device=dev)
     counts = ops.launch_counts()                  # just after
     bwd = ops.backward_launch_counts()
+    opt = ops.optimizer_launch_counts()
     n_params = sum(p.numel() for p in params.parameters())
+    n_leaves = len(list(params.parameters()))
     del params, state
     losses = [h["loss"] for h in hist]
     # each logged step ends in a sync (the loss read): a step's time is
@@ -1644,6 +1655,7 @@ def phase_train():
                    tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    launches=counts, bwd_launches=bwd,
+                   opt_launches=opt,
                    k2_forward_per_step=counts["flash_attention"] / TRAIN_STEPS,
                    k2_backward_per_step=(bwd["flash_attention_bwd"]
                                          / TRAIN_STEPS))
@@ -1651,6 +1663,9 @@ def phase_train():
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] <= losses[0] - TRAIN_DROP, losses
     assert bwd["flash_attention_bwd"] == cfg.num_layers * TRAIN_STEPS, bwd
+    # every leaf through the AdamW kernel pair, one call a step
+    assert opt == {"adamw": TRAIN_STEPS} and kadamw.leaves == n_leaves, (
+        opt, kadamw.leaves, n_leaves)
     _free()
     with tempfile.TemporaryDirectory() as d:
         ck = Checkpointer(d, keep=1)
@@ -1692,6 +1707,7 @@ def phase_train_hybrid():
     just after.  A step launches K5's backward once a Mamba2 layer and
     K2's once a pass of the shared block.  Then 3 profiled steps."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import (HYBRID_ARCH, HYBRID_BATCH,
                                                   HYBRID_SEQ)
@@ -1717,7 +1733,9 @@ def phase_train_hybrid():
                                     log_every=1, device=dev)
     counts = ops.launch_counts()                  # just after
     bwd = ops.backward_launch_counts()
+    opt = ops.optimizer_launch_counts()
     n_params = sum(p.numel() for p in params.parameters())
+    n_leaves = len(list(params.parameters()))
     del params, state
     losses = [h["loss"] for h in hist]
     step_s = statistics.median(b["wall"] - a["wall"]
@@ -1728,6 +1746,7 @@ def phase_train_hybrid():
                    tokens_per_s=HYBRID_BATCH * HYBRID_SEQ / step_s,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    launches=counts, bwd_launches=bwd,
+                   opt_launches=opt,
                    k5_forward_per_step=counts["ssd_chunk"] / TRAIN_STEPS,
                    k5_backward_per_step=bwd["ssd_chunk_bwd"] / TRAIN_STEPS,
                    k2_backward_per_step=(bwd["flash_attention_bwd"]
@@ -1736,6 +1755,9 @@ def phase_train_hybrid():
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] <= losses[0] - TRAIN_DROP, losses
     assert bwd["ssd_chunk_bwd"] == cfg.num_layers * TRAIN_STEPS, bwd
+    # every leaf through the AdamW kernel pair, one call a step
+    assert opt == {"adamw": TRAIN_STEPS} and kadamw.leaves == n_leaves, (
+        opt, kadamw.leaves, n_leaves)
     assert bwd["flash_attention_bwd"] == passes * TRAIN_STEPS, bwd
     _free()
     prof = profile_train_steps("train-hybrid")
@@ -1761,6 +1783,7 @@ def phase_train_moe():
     forward of the run is the naive form (keys 192, values 128) on the
     generic route (bf16: flash_fwd_wgmma), none in MLA mode.  Then 3
     profiled steps."""
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import (MOE_BATCH, MOE_EXPERTS,
                                                   MOE_LAYERS, MOE_SEQ,
@@ -1790,7 +1813,9 @@ def phase_train_moe():
     counts = ops.launch_counts()                  # just after
     bwd = ops.backward_launch_counts()
     mla = ops.mla_launch_counts()
+    opt = ops.optimizer_launch_counts()
     n_params = sum(p.numel() for p in params.parameters())
+    n_leaves = len(list(params.parameters()))
     del params, state
     losses = [h["loss"] for h in hist]
     step_s = statistics.median(b["wall"] - a["wall"]
@@ -1803,6 +1828,7 @@ def phase_train_moe():
                    tokens_per_s=MOE_BATCH * MOE_SEQ / step_s,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    launches=counts, bwd_launches=bwd, mla_launches=mla,
+                   opt_launches=opt,
                    k2_forward_per_step=counts["flash_attention"] / TRAIN_STEPS,
                    k2_backward_per_step=(bwd["flash_attention_bwd"]
                                          / TRAIN_STEPS))
@@ -1811,6 +1837,9 @@ def phase_train_moe():
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] <= losses[0] - TRAIN_DROP, losses
     assert bwd["flash_attention_bwd"] == MOE_LAYERS * TRAIN_STEPS, bwd
+    # every leaf through the AdamW kernel pair, one call a step
+    assert opt == {"adamw": TRAIN_STEPS} and kadamw.leaves == n_leaves, (
+        opt, kadamw.leaves, n_leaves)
     assert mla["flash_attention"] == 0 and counts["flash_attention"] > 0
     assert k2_keys and all(
         k[0] == "naive" and k[7:9] == (192, torch.bfloat16) and k[12] == 128
@@ -1924,7 +1953,8 @@ def phase_kernels_bench(seen_by_path):
     rows = kernels_bench.run(csv=lambda line: say(f"[bench] {line}"),
                              keys=keys)
     names = {r["name"] for r in rows}
-    want = {k.name for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)}
+    want = {k.name for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS,
+                             *ops.OPTIMIZER_KERNELS)}
     assert want <= names, want - names
     return rows
 
@@ -1951,7 +1981,8 @@ def phase_dryrun():
     card, step = dryrun.count_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ,
                                          "cuda", tcfg, seed=18)
     torch.cuda.synchronize()
-    launched = {**ops.launch_counts(), **ops.backward_launch_counts()}
+    launched = {**ops.launch_counts(), **ops.backward_launch_counts(),
+                **ops.optimizer_launch_counts()}
     meta, _ = dryrun.count_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ, "meta",
                                       tcfg, seed=18)
     for _ in range(2):
@@ -2121,6 +2152,9 @@ def main() -> int:
     rows += [(k, k.name, lambda r, n=k.name: r.get("bwd_launches",
                                                    {}).get(n, 0))
              for k in ops.BACKWARD_KERNELS]
+    rows += [(k, k.name, lambda r, n=k.name: r.get("opt_launches",
+                                                   {}).get(n, 0))
+             for k in ops.OPTIMIZER_KERNELS]
     for k, name, launched in rows:
         by_path = {p: launched(r) for p, r in runs.items()}
         if name in timing:

@@ -266,6 +266,7 @@ def check_cuda(name: str, tensors: List[torch.Tensor]) -> None:
     """Every tensor on one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
-        require(t.is_cuda and t.device == dev,
+        if not (t.is_cuda and t.device == dev):  # the message only then:
+            raise ValueError(                   # it lists every device
                 f"{name}: all inputs must be on one CUDA device, got "
                 f"{[str(x.device) for x in tensors]}")

@@ -1,5 +1,5 @@
-"""Public kernel entry points, the table of the port's kernels and the
-table of its backward kernels.
+"""Public kernel entry points, the table of the port's kernels, the
+table of its backward kernels and the table of its optimizer kernels.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``);
 a CUDA tensor goes to the hand-written kernel, which raises on anything it
@@ -14,6 +14,12 @@ A ``DTensor`` (the dry-run's production meshes) runs K1, K2 and K5 on
 this rank's shards (``models.sharding.run_local``): batch rows over the
 data axes, heads over ``model`` where the query and key/value head counts
 both divide it, every other dim whole.
+
+AdamW's step is a kernel too (:func:`adamw`, ``kernels/adamw.py``, the
+one row of ``OPTIMIZER_KERNELS``): it ports no TPU kernel but what XLA
+makes of the JAX package's ``adamw_update``.  The card runs it and meta
+counts it; the CPU runs the optimizer's plain loop and never comes here
+(``training/optimizer.py``).
 
 Observers (``launch/op_cost.py``'s counter) see each kernel call as one
 operation: :func:`observed` hands them the kernel's name, its work (the
@@ -44,6 +50,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
@@ -62,7 +69,9 @@ class Kernel:
     them."""
     name: str
     module: ModuleType
-    replaces: str               # the TPU kernel it ports, file:line
+    # the TPU kernel it ports, file:line; an OPTIMIZER_KERNELS row ports
+    # none and names the JAX function whose XLA code it replaces
+    replaces: str
     symbols: Tuple[str, ...]
 
     @property
@@ -120,6 +129,12 @@ BACKWARD_KERNELS = (
                    "src/repro/models/ssm.py:78",
                    ("ssd_bwd_keys_mma", "ssd_bwd_queries_mma",
                     "ssd_bwd_tiles", "ssd_bwd_finish")),
+)
+
+
+OPTIMIZER_KERNELS = (
+    Kernel("adamw", _adamw, "src/repro/training/optimizer.py:60",
+           ("adamw_sumsq", "adamw_step")),
 )
 
 
@@ -406,6 +421,67 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
         return _int8.int8_matmul(x, w, sx, sw, out_dtype)
 
 
+def adamw(params: List[torch.Tensor], grads: List[torch.Tensor],
+          m: List[torch.Tensor], v: List[torch.Tensor], lr: torch.Tensor,
+          bc1: torch.Tensor, bc2: torch.Tensor, **hyper) -> torch.Tensor:
+    """AdamW's step of every leaf (``kernels/adamw.py``), in place -> the
+    gradients' global norm, one ``adamw`` operation to an observer.  The
+    card and meta only: the kernel refuses CPU tensors, whose update is
+    ``optimizer.plain_update``.  ``DTensor`` leaves (the dry-run's meshes)
+    run on meta only: each gradient is first redistributed to its
+    parameter's placements (the data-parallel reduction of a ``Partial``
+    gradient), the call is counted on this rank's shards, and the norm's
+    all-reduce follows it (:func:`_norm_all_reduce`).  The card refuses
+    them, since its norm would be this rank's alone."""
+    sharded = is_dtensor(params[0])
+
+    def local(ts):
+        return [t.to_local() if is_dtensor(t) else t for t in ts]
+
+    def cost():
+        leaves = [local(ts) for ts in (params, grads, m, v)]
+        return ([(_adamw.flops(leaves[0]), torch.float32)],
+                _adamw.bytes_moved(*leaves))
+
+    meta = _route(local(params[:1])[0]) == "meta"
+    if sharded and not meta:
+        raise ValueError("adamw: DTensor leaves run only on meta; on the "
+                         "card the kernel's norm would be this rank's")
+    if sharded:
+        grads = [g if g.placements == p.placements
+                 else g.redistribute(p.device_mesh, p.placements)
+                 for p, g in zip(params, grads)]
+    # the kernel walks a leaf flat, so a gradient that autograd hands in
+    # another layout than its parameter's (wo's (h, e, d) comes as a
+    # transposed view) is copied to it first, as AccumulateGrad does
+    grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
+    with observed("adamw", cost):
+        if not meta:
+            return _adamw.adamw(params, grads, m, v, lr, bc1, bc2, **hyper)
+        gnorm = _meta((), torch.float32)
+    return _norm_all_reduce(grads) if sharded else gnorm
+
+
+def _norm_all_reduce(grads) -> torch.Tensor:
+    """On a mesh the kernel's sum of squares is this rank's: the global
+    norm sums it over the mesh dims each gradient is sharded on.  One 0-d
+    f32 partial a group of gradients sharded alike, all-reduced by
+    DTensor over its group's dims (the collectives an observer records),
+    -> the norm (meta)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = grads[0].device_mesh
+    total = _meta((), torch.float32)
+    for dims in dict.fromkeys(tuple(p.is_shard() for p in g.placements)
+                              for g in grads):
+        if any(dims):
+            part = DTensor.from_local(
+                _meta((), torch.float32), mesh,
+                [Partial() if d else Replicate() for d in dims],
+                run_check=False)
+            total = total + part.full_tensor()
+    return torch.sqrt(total)
+
+
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.module.launches.count for k in KERNELS}
 
@@ -420,8 +496,15 @@ def backward_launch_counts() -> Dict[str, int]:
     return {k.name: k.module.launches.count for k in BACKWARD_KERNELS}
 
 
+def optimizer_launch_counts() -> Dict[str, int]:
+    """Calls of each optimizer kernel (an AdamW call launches the
+    ``adamw_sumsq`` + ``adamw_step`` pair once per ``adamw.MAX_LEAVES``
+    leaves; ``adamw.leaves`` holds the last call's leaves)."""
+    return {k.name: k.module.launches.count for k in OPTIMIZER_KERNELS}
+
+
 def reset_launch_counts() -> None:
-    for k in BACKWARD_KERNELS:
+    for k in (*OPTIMIZER_KERNELS, *BACKWARD_KERNELS):
         k.module.launches.reset()
     for k in KERNELS:
         k.module.launches.reset()

@@ -6,9 +6,9 @@ functions on the CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.kernels_bench
 
-prints one CSV row per kernel of ``ops.KERNELS`` and
-``ops.BACKWARD_KERNELS`` (K1's and K2's MLA mode a row of its own) on
-each path that launches it, at that path's most frequent shape
+prints one CSV row per kernel of ``ops.KERNELS``,
+``ops.BACKWARD_KERNELS`` and ``ops.OPTIMIZER_KERNELS`` (K1's and K2's MLA
+mode a row of its own) on each path that launches it, at that path's most frequent shape
 (:data:`PATH_KEYS`, keys as :data:`REPLAY` makes them):
 ``name, path, device_us, host_us, bound_us, bound_by, plain_us,
 library_us``.  ``device_us`` is the card's time a launch with the calls
@@ -16,13 +16,15 @@ queued back to back, ``host_us`` a call issued to an idle card as a
 caller sees it (:func:`timed`); the bound is the larger of the wrapper's
 ``bytes_moved`` over the memory rate and its ``flops`` over the peak of
 their type (``launch/h100.py``); the library call is SDPA,
-``torch.topk`` or ``torch._int_mm`` (none for K5).  Needs one NVIDIA
+``torch.topk``, ``torch._int_mm`` or ``torch._fused_adamw_`` (none for
+K5).  Needs one NVIDIA
 GPU; ``chip_smoke.py`` holds each kernel against its plain version with
 the cases and limits defined here, and replays the shapes its paths gave
 each kernel.
 """
 from __future__ import annotations
 
+import collections
 import statistics
 import sys
 import time
@@ -125,6 +127,17 @@ def timed(fn, reps=15, warmup=3):
         cycles *= 3 * issue_ms / spin_ms
     raise RuntimeError(f"the host took {issue_ms:.1f} ms to issue {reps} "
                        f"calls, longer than every spin ({spin_ms:.1f} ms)")
+
+
+def paced(fn, reps=5, warmup=1):
+    """-> (ms, ms): :func:`timed`'s host-paced time alone, for a call of
+    thousands of launches (AdamW's plain loop, the library's), which fill
+    the launch queue before any spin ends."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = _median_ms(_issue(fn, reps))
+    return ms, ms
 
 
 def bound_ms(nbytes, *work):
@@ -469,13 +482,104 @@ def int8_case(M, K, N, out_dtype, g):
                 library=library, bound=bnd, tol=0.0)
 
 
+def adamw_case(state_dtype, leaves, g, step=5):
+    """AdamW's kernel pair over a leaf set: ``leaves`` is ((shape,
+    parameter type, gradient type, count), ...), the moments are of
+    ``state_dtype``; at ``step``, the gradients N(0, 1e-3), so the clip
+    is engaged from 10^6 parameters on.  The kernel, the plain version
+    (``optimizer.global_norm`` and ``plain_update``) and the library
+    update the state in place, each timing on what the last left (finite
+    at lr 1e-3).  ``check`` runs the kernel and the plain loop from one
+    state: p, m and v bit-equal at the kernel's clip scale, its norm
+    within rtol 1e-6 of ``global_norm``.  The library is
+    ``torch._fused_adamw_``, which the port never calls: moments of the
+    parameters' type made at its first call, no clip, so 14 bytes a bf16
+    parameter where the kernel moves 24 at f32 moments."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.training import optimizer
+    cfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=1)
+    shapes = [(s, pt, gt) for s, pt, gt, n in leaves for _ in range(n)]
+    p = [(2e-2 * rand(s, torch.float32, g)).to(pt) for s, pt, _ in shapes]
+    gr = [(1e-3 * rand(s, torch.float32, g)).to(gt) for s, _, gt in shapes]
+    m = [(1e-3 * rand(s, torch.float32, g)).to(state_dtype)
+         for s, _, _ in shapes]
+    v = [(1e-6 * torch.rand(s, generator=g, device="cuda")).to(state_dtype)
+         for s, _, _ in shapes]
+    st = torch.tensor(step, dtype=torch.int32, device="cuda")
+    lr = optimizer._schedule(cfg, st)
+    bc1 = 1 - torch.pow(cfg.b1, st.float())
+    bc2 = 1 - torch.pow(cfg.b2, st.float())
+    names = [str(i) for i in range(len(p))]
+    gd = dict(zip(names, gr))
+
+    def kernel():
+        return kadamw.adamw(p, gr, m, v, lr, bc1, bc2, b1=cfg.b1, b2=cfg.b2,
+                            eps=cfg.eps, weight_decay=cfg.weight_decay,
+                            grad_clip=cfg.grad_clip,
+                            norm_floor=optimizer.NORM_FLOOR)
+
+    def plain():
+        optimizer.plain_update(list(zip(names, p)), gd, dict(zip(names, m)),
+                               dict(zip(names, v)), optimizer.clip_scale(
+                                   optimizer.global_norm(gd), cfg), lr, bc1,
+                               bc2, cfg)
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    def check():
+        # the state before the step waits on the host: a second copy on
+        # the card would not fit beside the moe train path's
+        before = [[t.cpu() for t in ts] for ts in (p, m, v)]
+        gnorm = kernel()
+        got, want = float(gnorm), float(optimizer.global_norm(gd))
+        assert abs(got - want) <= 1e-6 * want, ("adamw norm", got, want)
+        scale = optimizer.clip_scale(gnorm, cfg)
+        for i, ours in enumerate(zip(p, m, v)):
+            pi, mi, vi = (ts[i].cuda() for ts in before)
+            k = names[i]
+            optimizer.plain_update([(k, pi)], gd, {k: mi}, {k: vi}, scale,
+                                   lr, bc1, bc2, cfg)
+            for what, a, b in zip("pmv", ours, (pi, mi, vi)):
+                assert torch.equal(bits(a), bits(b)), (
+                    f"adamw: {what} of leaf {i} {tuple(a.shape)} differs "
+                    f"from the plain loop's")
+        return 0.0
+
+    fused = {}
+
+    def library():
+        if not fused:
+            for pi, gi in zip(p, gr):
+                grp = fused.setdefault(pi.dtype, ([], [], [], [], []))
+                for lst, t in zip(grp, (pi, gi.to(pi.dtype),
+                                        torch.zeros_like(pi),
+                                        torch.zeros_like(pi),
+                                        torch.ones((), device="cuda"))):
+                    lst.append(t)
+        for ps, gs, ms, vs, steps in fused.values():
+            torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=cfg.lr,
+                                beta1=cfg.b1, beta2=cfg.b2,
+                                weight_decay=cfg.weight_decay, eps=cfg.eps,
+                                amsgrad=False, maximize=False)
+
+    bnd = bound_ms(kadamw.bytes_moved(p, gr, m, v),
+                   (kadamw.flops(p), torch.float32))
+    return dict(kernel=kernel, plain=plain, library=library, bound=bnd,
+                check=check, timers={"plain": paced, "library": paced})
+
+
 def measure(case):
     """Device and host-paced times of the kernel, the plain version and
-    the library yardstick, beside the bound."""
+    the library yardstick, beside the bound (:func:`timed`, or the case's
+    ``timers``)."""
     t = {}
+    timers = case.get("timers", {})
     for key, prefix in (("kernel", ""), ("plain", "plain_"),
                         ("library", "library_")):
-        dev, host = timed(case[key]) if case[key] else (None, None)
+        dev, host = (timers.get(key, timed)(case[key]) if case[key]
+                     else (None, None))
         t[f"{prefix}ms"], t[f"{prefix}host_ms"] = dev, host
     t["bound_ms"], t["bound_by"] = case["bound"]
     return t
@@ -564,6 +668,35 @@ def _k5b_key(x, dt, B, C, dA, dy, dS):
     return _k5_key(x, dt, B, C, dA)
 
 
+def _adamw_key(params, grads, m, v, *_, **__):
+    """A leaf set: the moments' type and each (shape, parameter type,
+    gradient type) with its count, in the order first seen."""
+    runs = collections.Counter((tuple(p.shape), p.dtype, g.dtype)
+                               for p, g in zip(params, grads))
+    return (m[0].dtype, tuple((*k, n) for k, n in runs.items()))
+
+
+def train_leaf_key(path):
+    """:func:`_adamw_key` of a train path's model
+    (``profile_serve.TRAIN_PATHS``) at its width on the card, from a meta
+    build: gradients of the parameters' types, moments of AdamW's
+    default state type."""
+    from repro_torch import torch_dtype
+    from repro_torch.launch import profile_serve
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig
+    cfg = profile_serve.train_config(torch.device("cuda"), path)
+    ps = list(build_model(cfg, "meta").init(0, trainable=True).parameters())
+    state = torch.empty((), dtype=torch_dtype(AdamWConfig().state_dtype))
+    return _adamw_key(ps, ps, [state], None)
+
+
+def _adamw_case(key, g):
+    """A key, or ("path", <train path>) for :func:`train_leaf_key`'s."""
+    return adamw_case(*(train_leaf_key(key[1]) if key[0] == "path"
+                        else key), g)
+
+
 def _kb_key(q, k, v, o, do, lse, *, causal, q_offset=0, kv_len=None,
             scale=None):
     b, sq, h, e = q.shape
@@ -610,6 +743,7 @@ REPLAY = {
         *key[:7], g, causal=key[7], q_offset=key[8], kv_len=key[9],
         ev=key[10], scale=key[11])),
     "ssd_chunk_bwd": (_k5b_key, lambda key, g: ssd_backward_case(*key, g)),
+    "adamw": (_adamw_key, _adamw_case),
 }
 
 
@@ -620,7 +754,8 @@ REPLAY = {
 # the most frequent shape key of each kernel row on each path of PERF.md
 # section 4, as chip_smoke.py's ShapeLog recorded them there (REPLAY's key
 # functions; printed by its bench phase); K4 runs on no path and is timed
-# at one zamba2 projection's shape
+# at one zamba2 projection's shape; AdamW's key is a train path's leaf
+# set, written ("path", <train path>) and built at the call
 PATH_KEYS: Dict[str, Dict[str, tuple]] = {
     "w2_isolated": {
         "flash_attention": (1, 16, 32, 16, 8, 128, torch.bfloat16, True, 0, None),
@@ -658,6 +793,7 @@ PATH_KEYS: Dict[str, Dict[str, tuple]] = {
                             True, 0, None),
         "flash_attention_bwd": (8, 256, 16, 256, 16, 64, torch.bfloat16,
                                 True, 0, None, 64, None),
+        "adamw": ("path", "train"),
     },
     "train_hybrid": {
         "ssd_chunk": (4, 2, 256, 64, 64, 64, torch.bfloat16, True),
@@ -666,12 +802,14 @@ PATH_KEYS: Dict[str, Dict[str, tuple]] = {
         "ssd_chunk_bwd": (4, 2, 256, 64, 64, 64, torch.bfloat16, True),
         "flash_attention_bwd": (4, 512, 32, 512, 32, 64, torch.bfloat16,
                                 True, 0, None, 64, None),
+        "adamw": ("path", "train-hybrid"),
     },
     "train_moe": {
         "flash_attention": ("naive", True, 2, 512, 128, 512, 128, 192,
                             torch.bfloat16, True, 0, None, 128, MLA_SCALE),
         "flash_attention_bwd": (2, 512, 128, 512, 128, 192, torch.bfloat16,
                                 True, 0, None, 128, MLA_SCALE),
+        "adamw": ("path", "train-moe"),
     },
     "none": {"int8_matmul": (128, 2048, 4096, torch.bfloat16)},
 }

@@ -121,7 +121,8 @@ TRAIN_PATHS = {"train": (TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
                "train-moe": (MOE_ARCH, MOE_BATCH, MOE_SEQ)}
 
 # the port's own kernels, by their __global__ names
-PORT_KERNELS = tuple(s for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)
+PORT_KERNELS = tuple(s for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS,
+                                 *ops.OPTIMIZER_KERNELS)
                      for s in k.symbols)
 GEMM = ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")   # cuBLAS
 TOP = 12

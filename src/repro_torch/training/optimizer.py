@@ -12,6 +12,10 @@ Where the reference returns new pytrees, the port updates in place: the
 parameters (an ``nn.Module``) and the moments ``m`` and ``v``
 (``{name: tensor}`` in ``named_parameters`` order); ``step`` is a new
 0-d int32 tensor.
+
+On the CPU the update runs leaf by leaf in torch operations
+(:func:`plain_update`); on the card one hand-written kernel pair updates
+every leaf in one pass with the same arithmetic (``kernels/adamw.py``).
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ from torch import nn
 
 from repro_torch import torch_dtype
 from repro_torch.core.spans import SPAN_OPTIMIZER, span
+from repro_torch.kernels import ops
 
 Tensors = Dict[str, torch.Tensor]
+NORM_FLOOR = 1e-9       # the clip's floor under the global norm
 
 
 class AdamWState(NamedTuple):
@@ -73,32 +79,58 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
                           for x in tree.values()))
 
 
+def clip_scale(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    """The global-norm clip's factor, min(clip / max(gnorm, floor), 1)."""
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=NORM_FLOOR),
+                       max=1.0)
+
+
+def plain_update(named, grads: Mapping[str, torch.Tensor], m: Tensors,
+                 v: Tensors, scale: torch.Tensor, lr: torch.Tensor,
+                 bc1: torch.Tensor, bc2: torch.Tensor,
+                 cfg: AdamWConfig) -> None:
+    """The plain version: AdamW leaf by leaf in torch operations, on
+    ``named`` ((name, parameter) pairs) and the moments, in place."""
+    b1, b2 = cfg.b1, cfg.b2
+    for name, p in named:
+        mn, vn = m[name], v[name]
+        g = grads[name].float() * scale
+        m1 = b1 * mn.float() + (1 - b1) * g
+        v1 = b2 * vn.float() + (1 - b2) * torch.square(g)
+        mh, vh = m1 / bc1, v1 / bc2
+        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
+            p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+        mn.copy_(m1.to(mn.dtype))
+        vn.copy_(v1.to(vn.dtype))
+
+
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
                  params: nn.Module, cfg: AdamWConfig
                  ) -> Tuple[nn.Module, AdamWState, Dict[str, torch.Tensor]]:
     """One step from ``grads`` ({name: tensor}, every parameter's):
     updates ``params`` and the moments in place -> (params, new state,
-    {"grad_norm", "lr"}), inside a ``train.optimizer`` span."""
+    {"grad_norm", "lr"}), inside a ``train.optimizer`` span.  On the CPU
+    the plain per-leaf loop runs; on the card one call of the AdamW kernel
+    pair (``kernels/adamw.py``) updates every leaf; on meta nothing runs
+    but that call's count (``ops.adamw``)."""
     with span(SPAN_OPTIMIZER):
-        gnorm = global_norm(grads)
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
         step = state.step + 1
         lr = _schedule(cfg, step)
-        b1, b2 = cfg.b1, cfg.b2
-        bc1 = 1 - torch.pow(b1, step.float())
-        bc2 = 1 - torch.pow(b2, step.float())
-        for name, p in params.named_parameters():
-            m, v = state.m[name], state.v[name]
-            g = grads[name].float() * scale
-            m1 = b1 * m.float() + (1 - b1) * g
-            v1 = b2 * v.float() + (1 - b2) * torch.square(g)
-            mh, vh = m1 / bc1, v1 / bc2
-            delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
-                p.float()
-            p.copy_((p.float() - lr * delta).to(p.dtype))
-            m.copy_(m1.to(m.dtype))
-            v.copy_(v1.to(v.dtype))
+        bc1 = 1 - torch.pow(cfg.b1, step.float())
+        bc2 = 1 - torch.pow(cfg.b2, step.float())
+        named = list(params.named_parameters())
+        if named[0][1].device.type == "cpu":
+            gnorm = global_norm(grads)
+            plain_update(named, grads, state.m, state.v,
+                         clip_scale(gnorm, cfg), lr, bc1, bc2, cfg)
+        else:
+            gnorm = ops.adamw(
+                [p for _, p in named], [grads[k] for k, _ in named],
+                [state.m[k] for k, _ in named],
+                [state.v[k] for k, _ in named], lr, bc1, bc2, b1=cfg.b1,
+                b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay,
+                grad_clip=cfg.grad_clip, norm_floor=NORM_FLOOR)
         return params, AdamWState(step, state.m, state.v), {
             "grad_norm": gnorm, "lr": lr}

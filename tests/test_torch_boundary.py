@@ -159,12 +159,46 @@ def test_backward_kernel_table_names_real_sources_and_the_autodiff_replaced(
     assert kernel.name not in {k.name for k in ops.KERNELS}
 
 
+def _optimizer_table():
+    from repro_torch.kernels import ops
+    return ops.OPTIMIZER_KERNELS
+
+
+@pytest.mark.parametrize("kernel", _optimizer_table(), ids=lambda k: k.name)
+def test_optimizer_kernel_table_names_real_sources_and_the_jax_function(
+        kernel):
+    """Each row of ``ops.OPTIMIZER_KERNELS`` points at its CUDA source, at
+    every ``__global__`` function in it, at the JAX function whose XLA
+    code it replaces (it ports no TPU kernel), and at a wrapper module
+    with a launch counter of its own; no symbol of it is part of another
+    table's, so a trace tells them apart."""
+    import re
+    from repro_torch.kernels import ops
+    src = (ROOT / kernel.source).read_text()
+    globals_ = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        src))
+    assert globals_ == set(kernel.symbols)
+    path, line = kernel.replaces.rsplit(":", 1)
+    jax_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert re.match(r"def \w+\(", jax_line), jax_line
+    assert callable(getattr(kernel.module, kernel.name))
+    others = (*ops.KERNELS, *ops.BACKWARD_KERNELS)
+    assert kernel.name not in {k.name for k in others}
+    assert all(kernel.module.launches is not k.module.launches
+               for k in others)
+    theirs = {s for k in others for s in k.symbols}
+    assert not any(a in b or b in a for a in kernel.symbols for b in theirs)
+
+
 def test_launch_counts_cover_the_kernel_table():
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     assert ops.launch_counts() == {k.name: 0 for k in ops.KERNELS}
     assert ops.backward_launch_counts() == {
         k.name: 0 for k in ops.BACKWARD_KERNELS}
+    assert ops.optimizer_launch_counts() == {
+        k.name: 0 for k in ops.OPTIMIZER_KERNELS}
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu(

@@ -23,7 +23,10 @@ rtol 1e-2.  Over that many keys the probabilities' rounding averages out,
 and what is left is the output's rounding, at most one bf16 step (2^-7
 of the value), so a key let in or left out at a window's edge shows; a
 narrow window (256 of 4096 slots) makes such a key weigh 1/256 of the
-output.
+output.  AdamW's kernel pair (``kernels/adamw.py``) is held to the plain
+per-leaf loop bit for bit at the clip scale of its own norm (the same f32
+operations in the same order, each rounded once), its norm within rtol
+1e-6 of the loop's and of an f64 sum.
 """
 import pytest
 
@@ -1443,9 +1446,241 @@ def test_train_step_counted_on_the_card_equals_meta(cuda):
     ops.reset_launch_counts()
     card, _ = dryrun.count_train_step(cfg, 2, 64, cuda)
     torch.cuda.synchronize()
-    launched = {**ops.launch_counts(), **ops.backward_launch_counts()}
+    launched = {**ops.launch_counts(), **ops.backward_launch_counts(),
+                **ops.optimizer_launch_counts()}
     meta, _ = dryrun.count_train_step(cfg, 2, 64, "meta")
     assert dict(card.kernels) == dict(meta.kernels) == {
         "flash_attention": launched["flash_attention"],
-        "flash_attention_bwd": launched["flash_attention_bwd"]}
+        "flash_attention_bwd": launched["flash_attention_bwd"],
+        "adamw": launched["adamw"]}
     assert card.flops == meta.flops and card.bytes == meta.bytes
+
+
+# ---------------------------------------------------------------------------
+# AdamW's kernel pair (kernels/adamw.py) against the plain per-leaf loop
+# ---------------------------------------------------------------------------
+
+_ADAMW_SIZES = (1, 7, 2049, 8193, 3 * 8192 + 9)
+
+
+def _adamw_cfg():
+    from repro_torch.training import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=1)
+
+
+def _adamw_buffers(rng, sizes, types, device, *, gscale, step, misalign):
+    """p, g, m, v as four flat buffers in ``types`` with each leaf a view:
+    16 elements of guard (random values) before, between and after the
+    leaves, every other leaf moved one element off 16-byte alignment when
+    ``misalign``; moments zero at step 1, as AdamW leaves them before its
+    first step, else random (v >= 0)."""
+    offs, pos = [], 16
+    for i, n in enumerate(sizes):
+        shift = 1 if misalign and i % 2 else 0
+        offs.append(pos + shift)
+        pos = -(-(pos + shift + n + 16) // 16) * 16
+    total = pos + 16
+    fresh = {"p": rng.standard_normal(total),
+             "g": rng.standard_normal(total) * gscale,
+             "m": rng.standard_normal(total) * 1e-2,
+             "v": rng.random(total) * 1e-3}
+    bufs = {}
+    for k, dt in zip("pgmv", types):
+        x = fresh[k]
+        if step == 1 and k in "mv":
+            inside = np.zeros(total, bool)
+            for o, n in zip(offs, sizes):
+                inside[o:o + n] = True
+            x = np.where(inside, 0.0, x)
+        bufs[k] = torch.from_numpy(x.astype(np.float32)).to(device, dt)
+    return bufs, offs
+
+
+def _views(bufs, offs, sizes):
+    return {k: [b[o:o + n] for o, n in zip(offs, sizes)]
+            for k, b in bufs.items()}
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _schedule_at(cfg, step, device):
+    from repro_torch.training import optimizer
+    st = torch.tensor(step, dtype=torch.int32, device=device)
+    return (optimizer._schedule(cfg, st),
+            1 - torch.pow(cfg.b1, st.float()),
+            1 - torch.pow(cfg.b2, st.float()))
+
+
+def _adamw_kernel(views, sched, cfg):
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.training import optimizer
+    return kadamw.adamw(views["p"], views["g"], views["m"], views["v"],
+                        *sched, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                        weight_decay=cfg.weight_decay,
+                        grad_clip=cfg.grad_clip,
+                        norm_floor=optimizer.NORM_FLOOR)
+
+
+def _adamw_plain(views, sched, cfg, gnorm):
+    """The plain loop at the clip scale of ``gnorm``."""
+    from repro_torch.training import optimizer
+    names = [str(i) for i in range(len(views["p"]))]
+    optimizer.plain_update(
+        list(zip(names, views["p"])), dict(zip(names, views["g"])),
+        dict(zip(names, views["m"])), dict(zip(names, views["v"])),
+        optimizer.clip_scale(gnorm, cfg), *sched, cfg)
+
+
+def _check_adamw(rng, sizes, types, device, *, gscale, step, misalign):
+    """The kernel pair and the plain loop from the same buffers: p, m, v
+    bit-equal at the kernel's clip scale, guards and g untouched, the
+    norm within rtol 1e-6 of the plain loop's and of an f64 sum; -> the
+    kernel's (norm, buffers)."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.training import optimizer
+    cfg = _adamw_cfg()
+    bufs, offs = _adamw_buffers(rng, sizes, types, device, gscale=gscale,
+                                step=step, misalign=misalign)
+    plain = {k: b.clone() for k, b in bufs.items()}
+    before = {k: b.clone() for k, b in bufs.items()}
+    sched = _schedule_at(cfg, step, device)
+    kv = _views(bufs, offs, sizes)
+    pv = _views(plain, offs, sizes)
+    calls = kadamw.launches.count
+    gnorm = _adamw_kernel(kv, sched, cfg)
+    assert kadamw.launches.count == calls + 1
+    assert kadamw.leaves == len(sizes)
+    _adamw_plain(pv, sched, cfg, gnorm)
+    torch.cuda.synchronize()
+    want = optimizer.global_norm(dict(enumerate(pv["g"])))
+    exact = float(np.sqrt(sum(float((g.double() ** 2).sum())
+                              for g in pv["g"])))
+    np.testing.assert_allclose(float(gnorm), float(want), rtol=1e-6)
+    np.testing.assert_allclose(float(gnorm), exact, rtol=1e-6)
+    for k in "pmv":
+        assert torch.equal(_bits(bufs[k]), _bits(plain[k])), k
+    assert torch.equal(_bits(bufs["g"]), _bits(before["g"]))
+    inside = torch.zeros(bufs["p"].numel(), dtype=torch.bool,
+                         device=device)
+    for o, n in zip(offs, sizes):
+        inside[o:o + n] = True
+    for k in "pmv":
+        assert torch.equal(_bits(bufs[k])[~inside],
+                           _bits(before[k])[~inside]), f"guard of {k}"
+    return gnorm, bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("step", [1, 5])
+@pytest.mark.parametrize("stype", sorted(DTYPES))
+@pytest.mark.parametrize("gtype", sorted(DTYPES))
+@pytest.mark.parametrize("ptype", sorted(DTYPES))
+def test_adamw_kernel_equals_the_plain_loop(cuda, ptype, gtype, stype, step,
+                                            clip):
+    """Every type of parameter, gradient and moment, leaves of 1, 7, 2049,
+    one over a tile and three tiles and more, half of them off 16-byte
+    alignment: p, m and v equal the plain loop's bit for bit at the
+    kernel's clip scale, and nothing else is written."""
+    import zlib
+    rng = np.random.default_rng(zlib.crc32(
+        f"{ptype} {gtype} {stype} {step} {clip}".encode()))
+    types = tuple(DTYPES[t] for t in (ptype, gtype, stype, stype))
+    gnorm, _ = _check_adamw(rng, _ADAMW_SIZES, types, cuda,
+                            gscale=1.0 if clip else 1e-4, step=step,
+                            misalign=True)
+    assert (float(gnorm) > 1.0) == clip
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [300, 600])
+def test_adamw_kernel_over_many_leaves(cuda, count):
+    """300 leaves (one launch pair) and 600 (two, over MAX_LEAVES) of
+    random sizes, bf16 parameters and gradients, f32 moments, at step 5
+    with the clip engaged: bit-equal to the plain loop, and two runs from
+    the same state bit-equal."""
+    from repro_torch.kernels import adamw as kadamw
+    assert kadamw.chunks(count) == (1 if count <= kadamw.MAX_LEAVES else 2)
+    sizes = [int(n) for n in np.random.default_rng(count).integers(
+        1, 20000, count)]
+    types = (torch.bfloat16, torch.bfloat16, torch.float32, torch.float32)
+    runs = [_check_adamw(np.random.default_rng(7), sizes, types, cuda,
+                         gscale=1.0, step=5, misalign=count > 300)
+            for _ in range(2)]
+    (n0, b0), (n1, b1) = runs
+    assert torch.equal(n0, n1)
+    for k in "pmv":
+        assert torch.equal(_bits(b0[k]), _bits(b1[k])), k
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_refuses_what_it_does_not_take(cuda):
+    """A half-precision leaf, a non-contiguous one, mismatched shapes and
+    a leaf off the card each raise before any launch."""
+    from repro_torch.kernels import adamw as kadamw
+    cfg = _adamw_cfg()
+    sched = _schedule_at(cfg, 1, cuda)
+
+    def leaves(**over):
+        v = {k: [torch.zeros(64, device=cuda)] for k in "pgmv"}
+        for k, t in over.items():
+            v[k] = [t]
+        return v
+    calls = kadamw.launches.count
+    for bad in (leaves(p=torch.zeros(64, device=cuda,
+                                     dtype=torch.float16)),
+                leaves(g=torch.zeros(64, 2, device=cuda)[:, 0]),
+                leaves(m=torch.zeros(63, device=cuda)),
+                leaves(v=torch.zeros(64))):
+        with pytest.raises(ValueError):
+            _adamw_kernel(bad, sched, cfg)
+    assert kadamw.launches.count == calls
+
+
+@pytest.mark.cuda
+def test_adamw_update_on_the_card_is_one_kernel_call(cuda):
+    """``adamw_update`` of a reduced bf16 qwen1.5 (bf16 matrices, f32 norm
+    scales; wo's gradients transposed views, as autograd gives them) on
+    the card: one call of the kernel pair over every leaf, and the
+    parameters and moments of the plain loop run on the card from the
+    same state, bit for bit."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer
+    cfg = _adamw_cfg()
+    mcfg = dataclasses.replace(reduced(get_config("qwen1.5-0.5b"),
+                                       d_model=256), dtype="bfloat16")
+    params = build_model(mcfg, cuda).init(5, trainable=True)
+    state = optimizer.adamw_init(params, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    grads = {k: torch.randn(p.shape, generator=gen, device=cuda).to(p.dtype)
+             for k, p in params.named_parameters()}
+    # wo's gradient as autograd hands it: a transposed view
+    for k, g in grads.items():
+        if k.endswith("wo"):
+            grads[k] = g.transpose(0, 1).contiguous().transpose(0, 1)
+    assert any(not g.is_contiguous() for g in grads.values())
+    twin = copy.deepcopy(params)
+    tstate = copy.deepcopy(state)
+    ops.reset_launch_counts()
+    _, new, out = optimizer.adamw_update(grads, state, params, cfg)
+    named = list(params.named_parameters())
+    assert ops.optimizer_launch_counts() == {"adamw": 1}
+    assert kadamw.leaves == len(named)
+    assert {p.dtype for _, p in named} == {torch.bfloat16, torch.float32}
+    sched = _schedule_at(cfg, 1, cuda)
+    with torch.no_grad():
+        optimizer.plain_update(list(twin.named_parameters()), grads,
+                               tstate.m, tstate.v, optimizer.clip_scale(
+                                   out["grad_norm"], cfg), *sched, cfg)
+    for (k, p), (_, q) in zip(named, twin.named_parameters()):
+        assert torch.equal(_bits(p.detach()), _bits(q.detach())), k
+        assert torch.equal(new.m[k], tstate.m[k]), k
+        assert torch.equal(new.v[k], tstate.v[k]), k

@@ -39,12 +39,35 @@ def test_document_qa_torch_finishes_both_queries_on_the_cpu(capsys):
 
 def test_bench_rows_cover_every_kernel_and_backward_kernel():
     names = {n for keys in kernels_bench.PATH_KEYS.values() for n in keys}
-    want = {k.name for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS)}
+    want = {k.name for k in (*ops.KERNELS, *ops.BACKWARD_KERNELS,
+                             *ops.OPTIMIZER_KERNELS)}
     assert want <= names, want - names
     assert names <= set(kernels_bench.REPLAY)
     assert kernels_bench.COLUMNS.split(",") == [
         "name", "path", "device_us", "host_us", "bound_us", "bound_by",
         "plain_us", "library_us"]
+
+
+@pytest.mark.parametrize("path", ["train", "train-hybrid", "train-moe"])
+def test_bench_adamw_key_is_the_train_paths_leaf_set(path):
+    """The bench's AdamW key of a train path, from a meta build of the
+    path's model at its width on the card: every leaf once, bf16
+    matrices and f32 norm scales with gradients of their own types, f32
+    moments; the key of the same tensors in the kernel's call order."""
+    import math
+    from repro_torch.launch import profile_serve
+    from repro_torch.models import build_model
+    state, runs = kernels_bench.train_leaf_key(path)
+    cfg = profile_serve.train_config(torch.device("cuda"), path)
+    ps = list(build_model(cfg, "meta").init(0, trainable=True).parameters())
+    assert state == torch.float32
+    assert sum(n for *_, n in runs) == len(ps)
+    assert sum(math.prod(s) * n for s, _, _, n in runs) == sum(
+        p.numel() for p in ps)
+    assert {(pt, gt) for _, pt, gt, _ in runs} == {
+        (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)}
+    assert kernels_bench._adamw_key(
+        ps, ps, [torch.empty((), dtype=state)], None) == (state, runs)
 
 
 def test_bench_needs_a_card():

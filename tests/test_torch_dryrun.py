@@ -351,7 +351,7 @@ def _rank0_numel(shape, placements, mesh_shape):
 def test_run_cell_reduced_qwen_ok(mesh_name):
     """Train on a fake 2 x 2 mesh and on one device: ok, with argument
     bytes the sum of rank 0's local shards of the parameters, AdamW's f32
-    moments and the batch."""
+    moments and the batch; AdamW one kernel call."""
     cfg, over = _reduced_overrides()
     rec = dryrun.run_cell("qwen1.5-0.5b", "train_4k", mesh=mesh_name,
                           verbose=False, overrides=over)
@@ -359,7 +359,8 @@ def test_run_cell_reduced_qwen_ok(mesh_name):
     # K2's forward once a layer, again in the backward under remat
     fwd = cfg.num_layers * (1 if cfg.remat == "none" else 2)
     assert rec["kernels"] == {"flash_attention": fwd,
-                              "flash_attention_bwd": cfg.num_layers}
+                              "flash_attention_bwd": cfg.num_layers,
+                              "adamw": 1}
     mesh_shape, axes = dryrun.MESHES[mesh_name]
     params = build_model(cfg, "meta").init(0)
     placed = ({} if mesh_name == "1" else sharding.param_shardings(
@@ -407,7 +408,7 @@ def test_run_cell_reduced_moe_on_the_meshes(arch, shape_name, mesh_name):
     """Reduced deepseek-v2/v3 (published MLA widths) end ok on both
     production meshes, each record with its kernel calls and collectives:
     K2 once a layer (twice under remat, and v3's MTP block once more), its
-    backward once a layer in a train step."""
+    backward once a layer and AdamW's kernel once in a train step."""
     cfg, over = _reduced_moe_overrides(arch)
     rec = dryrun.run_cell(arch, shape_name, mesh=mesh_name, verbose=False,
                           overrides=over)
@@ -416,13 +417,57 @@ def test_run_cell_reduced_moe_on_the_meshes(arch, shape_name, mesh_name):
     if shape_name == "train_4k":
         mtp = 1 if cfg.mtp_depth else 0
         want = {"flash_attention": 2 * n + mtp,
-                "flash_attention_bwd": n + mtp}
+                "flash_attention_bwd": n + mtp, "adamw": 1}
     else:
         want = {"flash_attention": n}
     assert rec["kernels"] == want
     assert set(rec["collectives"]) == set(op_cost.COLLECTIVES)
     assert rec["collectives"]["all-gather"] > 0
     assert rec["collectives"]["all-reduce"] > 0
+
+
+def test_adamw_on_a_mesh_reduces_each_gradient_and_the_norm():
+    """Meta DTensor leaves on a fake 2 x 2 mesh: each ``Partial``
+    gradient is redistributed to its parameter's placements before the
+    kernel (a reduce-scatter where the parameter is sharded, an all-reduce
+    where it is replicated), the kernel is one ``adamw`` call of rank 0's
+    shards' bytes, and the norm's partial sums are all-reduced for each
+    group of leaves sharded alike.  A DTensor off meta is refused."""
+    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch.kernels import ops
+    mesh = port_mesh.make_fake_mesh((2, 2), ("data", "model"))
+
+    def leaf(local, placements, dtype=torch.bfloat16, device="meta"):
+        return DTensor.from_local(torch.empty(local, dtype=dtype,
+                                              device=device),
+                                  mesh, placements, run_check=False)
+    sharded = [Shard(0), Shard(1)]
+    whole = [Replicate(), Replicate()]
+    params = [leaf((4, 8), sharded), leaf((16,), whole, torch.float32)]
+    grads = [leaf((8, 8), [Partial(), Shard(1)]),
+             leaf((16,), [Partial(), Partial()], torch.float32)]
+    m = [leaf(p.to_local().shape, p.placements, torch.float32)
+         for p in params]
+    v = [leaf(p.to_local().shape, p.placements, torch.float32)
+         for p in params]
+    sched = [torch.ones((), device="meta") for _ in range(3)]
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0,
+                 norm_floor=1e-9)
+    with OpCounter() as c:
+        gnorm = ops.adamw(params, grads, m, v, *sched, **hyper)
+    assert gnorm.is_meta and gnorm.shape == ()
+    assert dict(c.kernels) == {"adamw": 1}
+    assert c.kernel_flops > 0
+    # rank 0's shards: 32 bf16 elements with f32 moments, 16 f32 ones
+    coll = c.collectives
+    assert coll["reduce-scatter"] == 32 * 2
+    # the f32 leaf's gradient over both dims, then the two groups' norms
+    # (the sharded group over both dims)
+    assert coll["all-reduce"] == 2 * 16 * 4 + 2 * 4
+    off_meta = [leaf((4, 8), sharded, device="cpu")]
+    with pytest.raises(ValueError, match="DTensor"):
+        ops.adamw(off_meta, off_meta, off_meta, off_meta,
+                  *(torch.ones(()) for _ in range(3)), **hyper)
 
 
 def test_run_cell_error_says_where():

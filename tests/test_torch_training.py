@@ -269,6 +269,82 @@ def test_adamw_update_matches_jax(state_dtype):
             np.testing.assert_allclose(g[k], w[k], atol=1e-6, err_msg=k)
 
 
+def _bf16_leaves(device, shapes=((512, 256), (256,), (1000, 3))):
+    """A module of bf16 leaves, its bf16 gradients and f32 AdamW state."""
+    params = torch.nn.ParameterDict({
+        f"w{i}": torch.nn.Parameter(torch.zeros(s, dtype=torch.bfloat16,
+                                                device=device))
+        for i, s in enumerate(shapes)})
+    grads = {k: torch.ones_like(p) for k, p in params.named_parameters()}
+    return params, grads, adamw_init(params, AdamWConfig())
+
+
+def test_adamw_on_meta_is_one_kernel_call_of_24_bytes_a_parameter():
+    """On meta, AdamW is one ``adamw`` operation of the kernel's bytes (p,
+    m, v read and written, g read twice: 24 bytes a parameter at bf16
+    parameters and gradients and f32 moments) and FLOPs, and allocates
+    nothing but the 0-d norm; the whole ``adamw_update`` adds only the
+    schedule's scalars."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.launch.op_cost import OpCounter
+    params, grads, state = _bf16_leaves("meta")
+    named = list(params.named_parameters())
+    n = sum(p.numel() for _, p in named)
+    sched = [torch.ones((), device="meta") for _ in range(3)]
+    with OpCounter() as c:
+        gnorm = ops.adamw([p for _, p in named],
+                          [grads[k] for k, _ in named],
+                          [state.m[k] for k, _ in named],
+                          [state.v[k] for k, _ in named], *sched, b1=0.9,
+                          b2=0.95, eps=1e-8, weight_decay=0.1,
+                          grad_clip=1.0, norm_floor=1e-9)
+    assert gnorm.is_meta and gnorm.shape == ()
+    assert dict(c.kernels) == {"adamw": 1}
+    assert c.bytes == 24 * n
+    assert c.flops == c.kernel_flops == kadamw.FLOPS_PER_ELEMENT * n
+    assert c.peak_bytes == 4
+    with OpCounter() as c:
+        _, new, out = adamw_update(grads, state, params, AdamWConfig())
+    assert dict(c.kernels) == {"adamw": 1}
+    assert c.peak_bytes < 256 < 2 * n
+    assert new.step.is_meta and out["grad_norm"].is_meta
+
+
+def test_adamw_update_on_the_cpu_runs_no_kernel():
+    """The CPU runs the plain per-leaf loop: no launch of the kernel pair,
+    and the kernel refuses CPU tensors."""
+    params, grads, state = _bf16_leaves(CPU)
+    ops.reset_launch_counts()
+    _, new, out = adamw_update(grads, state, params, AdamWConfig())
+    assert ops.optimizer_launch_counts() == {"adamw": 0}
+    assert int(new.step) == 1 and float(out["grad_norm"]) > 0
+    named = list(params.named_parameters())
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.adamw([p for _, p in named], [grads[k] for k, _ in named],
+                  [new.m[k] for k, _ in named], [new.v[k] for k, _ in named],
+                  *(torch.ones(()) for _ in range(3)), b1=0.9, b2=0.95,
+                  eps=1e-8, weight_decay=0.1, grad_clip=1.0, norm_floor=1e-9)
+
+
+@pytest.mark.parametrize("ptype,gtype,stype,code,nbytes", [
+    (torch.bfloat16, torch.bfloat16, torch.float32, 1 | 2 | 8, 24),
+    (torch.bfloat16, torch.float32, torch.float32, 1 | 8, 28),
+    (torch.float32, torch.float32, torch.float32, 8, 32),
+    (torch.float32, torch.bfloat16, torch.bfloat16, 2 | 4 | 8, 20)])
+def test_adamw_leaf_code_and_bytes(ptype, gtype, stype, code, nbytes):
+    """``kernels/adamw.py``'s leaf codes (bit 0 bf16 p, 1 bf16 g, 2 bf16
+    moments, 3 all four 16-byte aligned; a view one element in is not)
+    and bytes a parameter, and its launch pairs (one per 512 leaves)."""
+    from repro_torch.kernels import adamw as kadamw
+    p, g, m, v = (torch.zeros(64, dtype=t)
+                  for t in (ptype, gtype, stype, stype))
+    assert kadamw.leaf_code(p, g, m, v) == code
+    assert kadamw.leaf_code(p, g[1:33], m, v) == code & ~8
+    assert kadamw.bytes_moved([p], [g], [m], [v]) == 64 * nbytes
+    assert [kadamw.chunks(k) for k in (1, 512, 513, 1024, 1025)] == [
+        1, 1, 2, 2, 3]
+
+
 def test_train_step_trajectory_matches_jax():
     jcfg, tcfg = _cfgs("qwen1.5-0.5b")
     ocfg = dict(lr=1e-3, warmup_steps=1)
