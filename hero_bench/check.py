@@ -15,11 +15,12 @@ from __future__ import annotations
 
 import gc
 import statistics
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
 
-from hero_bench.reference import dense
+from hero_bench import registry
 from hero_bench.reference.precision import strict_f32
 from hero_bench.reference.train import train_steps
 
@@ -85,13 +86,19 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
 def reference_steps(conf: dict, init: Dict[str, torch.Tensor],
                     batches: List[torch.Tensor], opt: dict,
                     sample: Dict[str, torch.Tensor],
-                    precision: str = "f32") -> dict:
+                    precision: str = "f32",
+                    root: Path = registry.HERE) -> dict:
+    """AdamW steps over the plain reference of the configuration's
+    family (``reference/<family>.py`` under ``root``)."""
+    ref = registry.load_reference(conf["family"], root)
+
     def loss_and_grads(P, toks):
-        return dense.loss_and_grads(conf, P, toks, precision)
+        return ref.loss_and_grads(conf, P, toks, precision)
     return train_steps(loss_and_grads, init, batches, opt, sample)
 
 
-def check_train(run, wl: dict) -> Dict[str, float]:
+def check_train(run, wl: dict, root: Path = registry.HERE
+                ) -> Dict[str, float]:
     """Reference steps from the weights drawn again from the seed, on the
     same batches, against what the program's set-up steps read."""
     strict_f32()
@@ -100,24 +107,25 @@ def check_train(run, wl: dict) -> Dict[str, float]:
     run.free()
     _free_device()
     ref = reference_steps(run.conf, run.weights.redraw(), batches, run.opt,
-                          prog["sample"])
+                          prog["sample"], root=root)
     _free_device()
     return train_numbers(prog, ref)
 
 
 def control_train(conf: dict, weights, batches, opt: dict,
-                  sample: Dict[str, torch.Tensor]
-                  ) -> Dict[str, Dict[str, float]]:
+                  sample: Dict[str, torch.Tensor],
+                  root: Path = registry.HERE) -> Dict[str, Dict[str, float]]:
     """The control (the reference with its products in fp8 in the
     program's place) and the half-batch fault (the reference on half the
     rows), each judged against the f32 reference."""
     strict_f32()
-    ref = reference_steps(conf, weights.redraw(), batches, opt, sample)
+    ref = reference_steps(conf, weights.redraw(), batches, opt, sample,
+                          root=root)
     ctl = reference_steps(conf, weights.redraw(), batches, opt, sample,
-                          "fp8")
+                          "fp8", root)
     half = reference_steps(conf, weights.redraw(),
                            [b[: b.shape[0] // 2] for b in batches], opt,
-                           sample)
+                           sample, root=root)
     return {"control": train_numbers(ctl, ref),
             "fault_half_batch": train_numbers(half, ref)}
 

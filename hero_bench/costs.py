@@ -1,6 +1,6 @@
 """Operations and bytes of the port's attention kernel (K2) and its
-backward, from the shapes of each call, and the model FLOPs of a train
-step from the configuration.  The kernels' arithmetic is that of
+backward, from the shapes of each call (a model family's FLOPs a train
+step are in ``families/<family>.py``).  The kernels' arithmetic is that of
 ``repro_torch.kernels.ops._flash_cost`` / ``flash_bwd_cost``, copied
 here and frozen so that a change to the program cannot change the
 yardstick.  Each input byte counts as read
@@ -9,6 +9,7 @@ visible pairs."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 from hero_bench import peaks
 
@@ -65,26 +66,9 @@ def k2_backward(b: int, sq: int, h: int, n: int, e: int, ev: int,
     return Cost(flops, 2 * (qb + ob + kb + vb) + 4 * b * h * sq, dtype)
 
 
-# ---------------------------------------------------------------------------
-# model FLOPs (for the mfu metric): 2 per multiply-add of each matrix
-# product a token needs, recompute not counted
-# ---------------------------------------------------------------------------
-
-def dense_matmul_params(m: dict) -> int:
-    """Multiply-adds a token needs in a dense model's blocks and its
-    vocabulary head (the embedding lookup is none)."""
-    d, h, n = m["hidden_size"], m["num_attention_heads"], \
-        m["num_key_value_heads"]
-    e, f = m["head_dim"], m["intermediate_size"]
-    attn = d * h * e + 2 * d * n * e + h * e * d
-    return m["num_hidden_layers"] * (attn + 3 * d * f) \
-        + d * m["vocab_size"]
-
-
-def dense_train_step_flops(m: dict, batch: int, seq: int) -> float:
-    """6 per multiply-add a token (forward and backward) plus attention's
-    QK and PV over the causal pairs, three times the forward's."""
-    pairs = batch * visible_pairs(seq, seq, True, 0)
-    attn_fwd = (2.0 * m["num_hidden_layers"] * m["num_attention_heads"]
-                * 2 * m["head_dim"] * pairs)
-    return 6.0 * dense_matmul_params(m) * batch * seq + 3.0 * attn_fwd
+def itemsize_and_type(t) -> Tuple[int, str]:
+    """Bytes an element of tensor ``t`` and the arithmetic type that
+    prices a kernel over it."""
+    import torch
+    return t.element_size(), ("float32" if t.dtype == torch.float32
+                              else "bfloat16")

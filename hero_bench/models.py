@@ -1,54 +1,27 @@
-"""The program's model configuration built from the benchmark's
-configuration file (Hugging Face key names), and the weights the
-benchmark makes for both sides: drawn on the device from the seed in
-one call per dtype, then handed to the program as views and read again
-by the plain reference."""
+"""The weights the benchmark makes for both sides: drawn on the device
+from the seed in one call per dtype, scaled leaf by leaf as the model
+family says (``families/<family>.py``'s ``init_scale``), then handed to
+the program as views and read again by the plain reference."""
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
 
 
-def dense_model_config(c: dict):
-    """A dense (Qwen3-style) configuration file -> ``ModelConfig``."""
-    from repro_torch.configs.base import ModelConfig
-    return ModelConfig(
-        name=c["name"], family="dense", num_layers=c["num_hidden_layers"],
-        d_model=c["hidden_size"], num_heads=c["num_attention_heads"],
-        num_kv_heads=c["num_key_value_heads"], head_dim=c["head_dim"],
-        d_ff=c["intermediate_size"], vocab_size=c["vocab_size"],
-        tie_embeddings=c["tie_word_embeddings"],
-        rope_theta=float(c["rope_theta"]), norm_eps=c["rms_norm_eps"],
-        remat=c["run"]["remat"], dtype=c["dtype"])
-
-
-def init_scale(name: str, shape: Tuple[int, ...],
-               tied: bool = False) -> float:
-    """The benchmark's weight scale of a leaf: 0 marks ones (norm
-    scales), else the normal's scale; the leaf names are the program's
-    (``lm.py``'s module docstring).  A tied embedding is drawn at
-    hidden_size**-0.5: at unit scale its row of the current token
-    outweighs every other logit."""
-    leaf = name.rsplit(".", 1)[-1]
-    if leaf == "scale":
-        return 0.0
-    if leaf == "embed":
-        return shape[1] ** -0.5 if tied else 1.0
-    if leaf == "wo":                       # (h, e, d)
-        return (shape[0] * shape[1]) ** -0.5
-    return shape[0] ** -0.5
+Scale = Callable[[str, Tuple[int, ...]], float]
 
 
 class Weights:
     """Every leaf of one model as a view of one buffer per dtype, drawn
-    in one call each from ``seed`` on ``device``."""
+    in one call each from ``seed`` on ``device``; ``scale(leaf, shape)``
+    gives the normal's scale of a leaf, 0 for ones."""
 
     def __init__(self, shapes: List[Tuple[str, Tuple[int, ...], torch.dtype]],
-                 seed: int, device: torch.device, tied: bool = False):
+                 seed: int, device: torch.device, scale: Scale):
         self.shapes = shapes
-        self.tied = tied
+        self.scale = scale
         self.seed = seed
         self.device = device
         self.tensors = self._draw()
@@ -66,7 +39,7 @@ class Weights:
             for name, shape, _ in leaves:
                 n = _numel(shape)
                 view = buf[off:off + n].view(shape)
-                scale = init_scale(name, shape, self.tied)
+                scale = self.scale(name, shape)
                 if scale == 0.0:
                     view.fill_(1.0)
                 elif scale != 1.0:
@@ -87,7 +60,7 @@ def _numel(shape) -> int:
     return n
 
 
-def program_model(cfg, seed: int, device: torch.device,
+def program_model(cfg, seed: int, device: torch.device, scale: Scale,
                   trainable: bool = False) -> Tuple[nn.Module, Weights]:
     """The program's parameter module for ``cfg`` with the benchmark's
     weights: the structure from ``lm.init_params`` on the meta device,
@@ -96,7 +69,7 @@ def program_model(cfg, seed: int, device: torch.device,
     meta = lm.init_params(cfg, torch.Generator(), torch.device("meta"))
     shapes = [(n, tuple(p.shape), p.dtype)
               for n, p in meta.named_parameters()]
-    w = Weights(shapes, seed, device, tied=cfg.tie_embeddings)
+    w = Weights(shapes, seed, device, scale)
     for name, t in w.tensors.items():
         owner, leaf = _owner(meta, name)
         param = nn.Parameter(t, requires_grad=trainable

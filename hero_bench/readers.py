@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
-from hero_bench import peaks
+from hero_bench import peaks, phases
 from hero_bench.train import completed_steps
 
 
@@ -47,3 +47,30 @@ def other_kernels_ms_per_step(run) -> Optional[float]:
     if not n:
         return None
     return 1e3 * run.trace.by_label().get("other", 0.0) / n
+
+
+# the program's spans, by the name the program records them under
+# (``repro_torch.train.forward``), a complete step of the traced window
+
+
+def span_ms_per_step(run, name: str, within: Optional[str] = None
+                     ) -> Optional[float]:
+    """Device ms of the kernels launched inside the ``name`` spans (with
+    ``within``, only those inside a ``within`` span)."""
+    if run.trace is None:
+        return None
+    return phases.span_device_ms(run.trace, name, within)
+
+
+def span_host_ms_per_step(run, name: str) -> Optional[float]:
+    """Host ms inside the ``name`` spans."""
+    if run.trace is None:
+        return None
+    return phases.span_host_ms(run.trace, name)
+
+
+def launches_per_step(run) -> Optional[float]:
+    """The runtime's kernel launches."""
+    if run.trace is None:
+        return None
+    return phases.launches(run.trace)

@@ -1,11 +1,15 @@
-"""Finds the benchmark's pieces by name: ``workloads/<cell>.json``,
-``configs/<config>.json`` and ``metrics/<metric>.py``, and reads which
-metrics a cell reports from ``BENCHMARK.json``.  A later change adds a
-cell, a configuration or a metric by adding files and entries only."""
+"""Finds the benchmark's pieces by name under its directory ``root``:
+``workloads/<cell>.json``, ``configs/<config>.json``,
+``metrics/<metric>.py``, a model family's ``families/<family>.py`` and
+its plain reference ``reference/<family>.py``, and a kernel's
+``kernels/<label>.py``; and reads which metrics a cell reports from
+``BENCHMARK.json``.  A later change adds a cell, a configuration, a
+family, a kernel or a metric by adding files and entries only."""
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List, Optional
@@ -37,6 +41,20 @@ def load_config(name: str, root: Path = HERE) -> dict:
     return json.loads(path.read_text())
 
 
+def _load(path: Path, what: str) -> ModuleType:
+    """The module in file ``path``, entered in ``sys.modules`` before it
+    runs, as a dataclass defined in it needs."""
+    if not path.is_file():
+        raise KeyError(f"no {what} {path}")
+    ident = path.stem.replace(".", "_").replace("-", "_")
+    name = f"hero_bench_{what.replace(' ', '_')}_{ident}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_path(name: str, root: Path = HERE) -> Path:
     return root / "metrics" / f"{name}.py"
 
@@ -44,15 +62,31 @@ def metric_path(name: str, root: Path = HERE) -> Path:
 def load_metric(name: str, root: Path = HERE) -> ModuleType:
     """The reader of metric ``name``: a module with ``UNIT``, ``SOURCE``
     and ``read(run) -> Optional[float]``."""
-    path = metric_path(name, root)
-    if not path.is_file():
-        raise KeyError(f"no metric reader {path}")
-    spec = importlib.util.spec_from_file_location(
-        "hero_bench_metric_" + name.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(metric_path(name, root), "metric reader")
+
+
+def load_family(name: str, root: Path = HERE) -> ModuleType:
+    """Model family ``name`` (a configuration file's ``family``): a module
+    with ``model_config(conf)`` -> the port's ``ModelConfig``,
+    ``init_scale(leaf, shape, conf)`` -> the normal's scale of a leaf (0:
+    ones) and ``train_step_flops(conf, batch, seq)``."""
+    return _load(root / "families" / f"{name}.py", "family")
+
+
+def load_reference(name: str, root: Path = HERE) -> ModuleType:
+    """The plain reference of family ``name``: a module with
+    ``loss_and_grads(conf, W, tokens, precision) -> (loss, {leaf:
+    gradient})``."""
+    return _load(root / "reference" / f"{name}.py", "reference")
+
+
+def load_kernels(root: Path = HERE) -> Dict[str, ModuleType]:
+    """Every ``kernels/<label>.py`` by label: ``SYMBOLS`` (the names a
+    device trace gives its launches) and, where the benchmark prices the
+    kernel, ``TARGET`` (the ``repro_torch`` module and the attribute that
+    launches it) and ``cost(*args, **kwargs) -> costs.Cost`` of a call."""
+    return {p.stem: _load(p, "kernel")
+            for p in sorted((root / "kernels").glob("*.py"))}
 
 
 def benchmark(repo: Path = REPO) -> dict:

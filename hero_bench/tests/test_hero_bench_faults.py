@@ -55,11 +55,10 @@ def test_train_half_batch_left_out_is_caught(monkeypatch):
 def test_train_control_reads_far_above_the_program():
     """At the test's size: the fp8 reference in the program's place
     against the f32 reference, beside the program's own readings."""
-    from hero_bench import models, traffic
+    from hero_bench import traffic
     from hero_bench.train import optimizer_args
     wl, conf = tiny.train_cell()
-    cfg = models.dense_model_config(conf)
-    params, w = models.program_model(cfg, SEED, torch.device("cpu"))
+    params, w = tiny.program_model(conf, SEED)
     feed = traffic.train_batches(wl["mix"], SEED, conf["vocab_size"],
                                  torch.device("cpu"))
     batches = [next(feed)["tokens"] for _ in range(3)]

@@ -5,8 +5,7 @@ autograd's device thread does; a block recomputed in the backward."""
 import pytest
 
 from hero_bench import phases, tracing
-from hero_bench.phases import (BACKWARD, BLOCK, FORWARD, OPTIMIZER, STEP,
-                               SpanTrace)
+from hero_bench.phases import BACKWARD, BLOCK, FORWARD, OPTIMIZER, STEP
 
 MAIN, AUTOGRAD = 1, 2
 
@@ -45,7 +44,7 @@ def trace():
     runtime.append(("cudaMemcpyAsync", 8, 2.05, 2.06))
     kernels.append(("Memcpy DtoD (Device -> Device)", 2.06, 2.06 + 3e-3))
     ids.append(8)
-    return SpanTrace(kernels, (0.0, 10.0), spans, runtime, ids)
+    return tracing.DeviceTrace(kernels, (0.0, 10.0), spans, runtime, ids)
 
 
 def test_only_steps_inside_the_window_count():
@@ -102,14 +101,15 @@ def test_idle_gaps_are_named_by_the_innermost_program_span():
 def test_span_names_are_the_programs():
     from repro_torch.core import spans
     assert {STEP, FORWARD, BACKWARD, OPTIMIZER, BLOCK} == spans.ALL_SPANS
-    assert phases.PREFIX == spans.PREFIX
+    assert tracing.PREFIX == spans.PREFIX
 
 
 def test_span_profiler_keeps_the_programs_spans():
-    """On the CPU: a span opened inside the window comes back with its
-    thread, on the window's clock; no kernel, so no correlation id."""
+    """On the CPU: a span opened inside the window comes back in
+    ``tracing.Profiler``'s trace with its thread, on the window's clock;
+    no kernel, so no correlation id."""
     from repro_torch.core.spans import SPAN_FORWARD, span
-    prof = phases.SpanProfiler()
+    prof = tracing.Profiler()
     prof.start()
     with span(SPAN_FORWARD):
         sum(range(1000))
@@ -122,7 +122,7 @@ def test_span_profiler_keeps_the_programs_spans():
 
 
 def test_split_of_the_programs_steps_on_the_cpu():
-    """Two steps of a reduced model under ``SpanProfiler``: both complete
+    """Two steps of a reduced model under ``tracing.Profiler``: both complete
     in the window, each phase has host time; the CPU launches nothing."""
     import dataclasses
 
@@ -135,7 +135,7 @@ def test_split_of_the_programs_steps_on_the_cpu():
     params, state = init(0)
     tokens = torch.randint(0, cfg.vocab_size, (2, 16),
                            generator=torch.Generator().manual_seed(0))
-    prof = phases.SpanProfiler()
+    prof = tracing.Profiler()
     prof.start()
     for _ in range(2):
         params, state, _ = step(params, state,
@@ -150,3 +150,38 @@ def test_split_of_the_programs_steps_on_the_cpu():
     # remat "dots" recomputes each block of both steps in the backward
     assert len(phases.spans_in_steps(t, phases.BLOCK, within=phases.BACKWARD)
                ) == 2 * cfg.num_layers
+
+
+SPAN_METRICS = ("forward_ms.train", "backward_ms.train", "optimizer_ms.train",
+                "recompute_ms.train", "forward_host_ms.train",
+                "backward_host_ms.train", "optimizer_host_ms.train",
+                "launches.train")
+
+
+@pytest.mark.parametrize("name", SPAN_METRICS)
+def test_span_metric_reads_what_the_split_reads(name):
+    from hero_bench import registry
+    from hero_bench.report import RunView
+    reader = registry.load_metric(name)
+    assert reader.read(RunView(10.0, 0.0, trace=trace())) == \
+        pytest.approx(phases.split(trace())[name])
+    assert reader.read(RunView(10.0, 0.0)) is None          # untraced
+    spanless = trace()
+    spanless.spans = []
+    assert reader.read(RunView(10.0, 0.0, trace=spanless)) is None
+
+
+def test_a_planted_metric_reads_a_span_by_name(tmp_path):
+    """A metric added as one file reads any of the program's spans."""
+    from hero_bench import registry
+    from hero_bench.report import RunView
+    (tmp_path / "metrics").mkdir()
+    (tmp_path / "metrics" / "block_ms.train.py").write_text(
+        "from hero_bench import readers\n"
+        "UNIT = 'ms'\n"
+        "def read(run):\n"
+        "    return readers.span_ms_per_step(run, 'repro_torch.lm.block')\n")
+    got = registry.load_metric("block_ms.train", tmp_path).read(
+        RunView(10.0, 0.0, trace=trace()))
+    # a block in the forward (4 ms) and its recompute (2 ms) each step
+    assert got == pytest.approx(6.0)

@@ -66,12 +66,15 @@ def test_benchmark_contract_shape():
 
 
 def test_config_states_its_cut():
-    """Each configuration file names the keys it changed from its source
-    (none here) and the deployment it stands for."""
+    """Each configuration file names the keys it changed from its source,
+    states each one's published value under ``published``, and names the
+    deployment it stands for."""
     for c in BENCH["configs"]:
         conf = registry.load_config(c["name"])
         assert conf["source"] == c["source"]
-        assert conf["reduced"] == [] and conf["deployment"]
+        for key in conf["reduced"]:
+            assert key in conf and key in conf["published"], key
+        assert conf["deployment"]
         assert conf["dtype"] == "bfloat16"
 
 
@@ -119,13 +122,14 @@ def test_dense_train_flops_by_hand():
     m = {"hidden_size": 4, "num_attention_heads": 2,
          "num_key_value_heads": 1, "head_dim": 2, "intermediate_size": 8,
          "vocab_size": 10, "num_hidden_layers": 3}
+    dense = registry.load_family("dense")
     # a layer: q 4*2*2, k and v 4*1*2 each, o 2*2*4, mlp 3*4*8; head 4*10
     per_token = 3 * (16 + 16 + 16 + 96) + 40
-    assert costs.dense_matmul_params(m) == per_token
+    assert dense.matmul_params(m) == per_token
     # one row of 3 tokens: 6 causal pairs; QK and PV 2*2*(2+2) a pair a
     # layer in the forward, three times that in a step
     attn = 3 * 2.0 * 3 * 2 * 2 * 2 * 6
-    assert costs.dense_train_step_flops(m, 1, 3) == 6 * per_token * 3 + attn
+    assert dense.train_step_flops(m, 1, 3) == 6 * per_token * 3 + attn
 
 
 def test_kernel_names():

@@ -5,7 +5,7 @@ from __future__ import annotations
 import copy
 import json
 
-from hero_bench import registry
+from hero_bench import models, registry
 
 CELL = "qwen3-1.7b-train-4x4096"
 
@@ -27,3 +27,13 @@ def train_cell(name: str = CELL):
 
 def bench() -> dict:
     return json.loads((registry.REPO / "BENCHMARK.json").read_text())
+
+
+def program_model(conf: dict, seed: int):
+    """The program's parameters and the benchmark's weights for ``conf``
+    on the CPU, built through the configuration's family."""
+    import torch
+    family = registry.load_family(conf["family"])
+    return models.program_model(
+        family.model_config(conf), seed, torch.device("cpu"),
+        lambda leaf, shape: family.init_scale(leaf, shape, conf))

@@ -1,16 +1,27 @@
-"""What a run records: host spans, the shapes of each K2 call (through
-shims on ``repro_torch.kernels.ops`` and the backward kernel's entry,
-installed only in a traced run), and the device trace of
-``torch.profiler`` over the traced window."""
+"""What a run records: host spans, the cost of each call of a kernel the
+benchmark prices (through shims on the attributes that ``kernels/<label>.py``
+names, installed only in a traced run), and the device trace of
+``torch.profiler`` over the traced window, with the program's own spans
+and the launches that issued each kernel."""
 from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Tuple
 
-from hero_bench import costs, kernel_names, stats
+from hero_bench import costs, kernel_names, registry, stats
+
+# the program's spans are profiler ranges whose names start with PREFIX
+# (repro_torch/core/spans.py); the CUDA runtime's and driver's host events
+# (cudaLaunchKernel, cuLaunchKernelEx for cuBLAS's nvjet,
+# cudaMemcpyAsync, ...) start with RUNTIME
+PREFIX = "repro_torch."
+RUNTIME = "cu"
+MARKER = "hero_bench.window_open"
 
 
 @dataclass
@@ -43,59 +54,46 @@ class Recorder:
             self.calls.append((time.monotonic(), label, cost))
 
 
-def _itemsize_and_type(t) -> Tuple[int, str]:
-    import torch
-    return t.element_size(), ("float32" if t.dtype == torch.float32
-                              else "bfloat16")
+def _shim(rec: Recorder, label: str, fn, cost):
+    def shim(*args, **kwargs):
+        if rec.shapes_on:
+            rec.kernel_call(label, cost(*args, **kwargs))
+        return fn(*args, **kwargs)
+    return shim
 
 
 @contextlib.contextmanager
-def kernel_shims(rec: Recorder):
-    """Record the shape-derived cost of every K2 and K2-backward call
+def kernel_shims(rec: Recorder, root: Path = registry.HERE):
+    """Record the cost of every call of each kernel file's ``TARGET``
     while ``rec.shapes_on``; the calls themselves are unchanged."""
-    from repro_torch.kernels import flash_attention_bwd as fbwd
-    from repro_torch.kernels import ops
-
-    orig = (ops.flash_attention, fbwd.flash_attention_bwd)
-
-    def flash(q, k, v, *, causal=True, q_offset=0, kv_len=None,
-              kv_positions=None, window=0, scale=None):
-        if rec.shapes_on:
-            b, sq, h, e = q.shape
-            n, ev = k.shape[2], v.shape[-1]
-            size, dt = _itemsize_and_type(q)
-            lse = q.requires_grad or k.requires_grad
-            rec.kernel_call("K2", costs.k2_forward(
-                b, sq, h, n, e, ev, k.shape[1] if kv_len is None else kv_len,
-                causal, q_offset, size, dt, lse=lse))
-        return orig[0](q, k, v, causal=causal, q_offset=q_offset,
-                       kv_len=kv_len, kv_positions=kv_positions,
-                       window=window, scale=scale)
-
-    def flash_bwd(q, k, v, *args, **kwargs):
-        if rec.shapes_on:
-            b, sq, h, e = q.shape
-            size, dt = _itemsize_and_type(q)
-            causal = kwargs.get("causal", True)
-            q_offset = kwargs.get("q_offset", 0)
-            kv_len = kwargs.get("kv_len") or k.shape[1]
-            rec.kernel_call("K2-bwd", costs.k2_backward(
-                b, sq, h, k.shape[2], e, v.shape[-1], kv_len, causal,
-                q_offset, size, dt))
-        return orig[1](q, k, v, *args, **kwargs)
-
-    ops.flash_attention, fbwd.flash_attention_bwd = flash, flash_bwd
+    installed = []
     try:
+        for label, mod in registry.load_kernels(root).items():
+            if not hasattr(mod, "TARGET"):
+                continue
+            owner = importlib.import_module(mod.TARGET[0])
+            fn = getattr(owner, mod.TARGET[1])
+            setattr(owner, mod.TARGET[1], _shim(rec, label, fn, mod.cost))
+            installed.append((owner, mod.TARGET[1], fn))
         yield
     finally:
-        ops.flash_attention, fbwd.flash_attention_bwd = orig
+        for owner, attr, fn in reversed(installed):
+            setattr(owner, attr, fn)
 
 
 @dataclass
 class DeviceTrace:
-    """Kernel intervals of the traced window, in host monotonic seconds."""
+    """The traced window: kernel intervals ``(name, start, end)``, the
+    program's spans ``(name, thread, start, end)``, the runtime's host
+    events ``(name, correlation id, start, end)`` and each kernel's
+    correlation id, in ``kernels``' order; all times in host monotonic
+    seconds."""
     kernels: List[Tuple[str, float, float]] = field(default_factory=list)
     window: Tuple[float, float] = (0.0, 0.0)
+    spans: List[Tuple[str, int, float, float]] = field(default_factory=list)
+    runtime: List[Tuple[str, int, float, float]] = field(
+        default_factory=list)
+    kernel_ids: List[int] = field(default_factory=list)
 
     @property
     def window_s(self) -> float:
@@ -110,6 +108,11 @@ class DeviceTrace:
             out[kernel_names.label(name)] += e - s
         return dict(out)
 
+    def program_spans(self) -> List[Span]:
+        """The program's spans as ``Span``, named without the package
+        prefix (``train.forward``, ``lm.block``)."""
+        return [Span(n[len(PREFIX):], s, e) for n, _, s, e in self.spans]
+
     def top_ops(self, n: int = 10) -> List[List]:
         out: Dict[str, float] = collections.defaultdict(float)
         for name, s, e in self.kernels:
@@ -119,9 +122,10 @@ class DeviceTrace:
 
 
 class Profiler:
-    """``torch.profiler`` over the traced window; kernel times are mapped
-    to host monotonic seconds through a marker range recorded at the
-    window's start."""
+    """``torch.profiler`` over the traced window; kernel times, the
+    program's spans and the runtime's launches are mapped to host
+    monotonic seconds through a marker range recorded at the window's
+    start."""
 
     def __init__(self):
         self._prof = None
@@ -136,7 +140,7 @@ class Profiler:
         self._prof = profile(activities=acts)
         self._prof.__enter__()
         self._t0 = time.monotonic()
-        with record_function("hero_bench.window_open"):
+        with record_function(MARKER):
             pass
 
     def stop(self) -> DeviceTrace:
@@ -145,21 +149,30 @@ class Profiler:
             torch.cuda.synchronize()
         t1 = time.monotonic()
         self._prof.__exit__(None, None, None)
-        events = self._prof.events()
+        cuda = torch.autograd.DeviceType.CUDA
         marker = None
-        kernels = []
-        for e in events:
-            if e.name == "hero_bench.window_open" and marker is None:
-                marker = e.time_range.start
-            elif (e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.time_range.end > e.time_range.start):
-                kernels.append((e.name, e.time_range.start,
-                                e.time_range.end))
+        kernels, ids, spans, runtime = [], [], [], []
+        for e in self._prof.events():
+            s, t = e.time_range.start, e.time_range.end
+            if e.name == MARKER and marker is None:
+                marker = s
+            elif e.device_type == cuda:
+                if t > s:
+                    kernels.append((e.name, s, t))
+                    ids.append(e.id)
+            elif e.name.startswith(PREFIX):
+                spans.append((e.name, e.thread, s, t))
+            elif e.name.startswith(RUNTIME):
+                runtime.append((e.name, e.id, s, t))
         if marker is None:
             raise RuntimeError("profiler lost the window marker")
         off = self._t0 - marker / 1e6
-        ks = [(n, s / 1e6 + off, e / 1e6 + off) for n, s, e in kernels]
-        return DeviceTrace(ks, (self._t0, t1))
+
+        def host(ev):
+            return (*ev[:-2], ev[-2] / 1e6 + off, ev[-1] / 1e6 + off)
+        return DeviceTrace([host(k) for k in kernels], (self._t0, t1),
+                           [host(sp) for sp in spans],
+                           [host(r) for r in runtime], ids)
 
 
 def idle_gaps(trace: DeviceTrace, spans: List[Span], n: int = 10

@@ -10,11 +10,12 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from hero_bench import models, traffic
+from hero_bench import models, registry, traffic
 from hero_bench.tracing import Profiler, Recorder, kernel_shims
 
 CHECK_STEPS = 3
@@ -48,17 +49,22 @@ def optimizer_args(conf: dict) -> dict:
 
 
 def run(wl: dict, conf: dict, seed: int, seconds: float, trace: bool,
-        device: torch.device, t_proc0: float) -> TrainRun:
+        device: torch.device, t_proc0: float,
+        root: Path = registry.HERE) -> TrainRun:
+    """The model is built by the family the configuration names
+    (``families/<family>.py`` under ``root``)."""
     from repro_torch.training import TrainConfig, make_train_step
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from hero_bench.check import sample_indices
     mix = wl["mix"]
-    cfg = models.dense_model_config(conf)
+    family = registry.load_family(conf["family"], root)
+    cfg = family.model_config(conf)
     opt = optimizer_args(conf)
     tcfg = TrainConfig(optimizer=AdamWConfig(**opt))
     _, step = make_train_step(cfg, tcfg, device)
-    params, weights = models.program_model(cfg, seed, device,
-                                           trainable=True)
+    params, weights = models.program_model(
+        cfg, seed, device, lambda leaf, shape: family.init_scale(
+            leaf, shape, conf), trainable=True)
     state = adamw_init(params, tcfg.optimizer)
     feed = traffic.train_batches(mix, seed, conf["vocab_size"], device)
     rec = Recorder()
@@ -96,7 +102,7 @@ def run(wl: dict, conf: dict, seed: int, seconds: float, trace: bool,
     if cuda:
         # the window's own peak: set-up's copies are not the step's
         torch.cuda.reset_peak_memory_stats(device)
-    with kernel_shims(rec) if trace else contextlib.nullcontext():
+    with kernel_shims(rec, root) if trace else contextlib.nullcontext():
         t_open = time.monotonic()
         setup_s = t_open - t_proc0
         ends, trace_ends, dev_trace = _window(step, holder, feed, seconds,
