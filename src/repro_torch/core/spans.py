@@ -43,6 +43,15 @@ SPAN_BLOCK = "repro_torch.lm.block"
 ALL_SPANS = frozenset({SPAN_TRAIN_STEP, SPAN_FORWARD, SPAN_BACKWARD,
                        SPAN_OPTIMIZER, SPAN_BLOCK})
 
+# -- the dropless expert layer (models/moe.py ``moe_ffn_dropless``), inside
+#    a block: again in the backward where remat recomputes it; the
+#    products' own backward runs outside them -------------------------------
+SPAN_MOE_ROUTE = "repro_torch.moe.route"        # router, loss, sort, gather
+SPAN_MOE_EXPERTS = "repro_torch.moe.experts"    # grouped products, SiLU·up
+SPAN_MOE_COMBINE = "repro_torch.moe.combine"    # gates, scatter back
+
+MOE_SPANS = frozenset({SPAN_MOE_ROUTE, SPAN_MOE_EXPERTS, SPAN_MOE_COMBINE})
+
 _OFF = contextlib.nullcontext()
 
 

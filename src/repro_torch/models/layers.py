@@ -66,10 +66,13 @@ def rope_freqs(head_dim: int, theta: float,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, inv_freq: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """x (..., seq, heads, head_dim); positions (..., seq).  Split-half
-    rotation (not interleaved)."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)
+    rotation (not interleaved), at ``inv_freq`` (head_dim//2,) if given
+    (YaRN's blend, ``models/options.py``), else at ``theta``'s."""
+    inv = rope_freqs(x.shape[-1], theta, x.device) if inv_freq is None \
+        else inv_freq
     ang = positions[..., None].float() * inv           # (..., s, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -12,7 +12,8 @@ cross-attention: ``ln_x``, ``xattn`` and the f32 scalar ``xgate``) and
 ``encoder.final_norm`` and decoder ``blocks.<i>`` with cross-attention;
 moe (DeepSeek): ``dense_blocks.<i>`` then ``moe_blocks.<i>``, each
 ``{ln1, mla, ln2}`` and ``mlp`` or ``moe`` (MLA leaves ``wq_a``,
-``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b``, ``wo``,
+``q_norm``, ``wq_b`` or a direct ``wq``, ``wkv_a``, ``kv_norm``, ``wk_b``,
+``wv_b``, ``wo``,
 the norms' scales stored flat; MoE leaves the f32 ``router``,
 ``w_gate``/``w_up``/``w_down`` stacked on the expert axis and the shared
 experts as ``shared_w_*``), and for v3 ``mtp`` (``proj``, ``ln``, a dense
@@ -62,6 +63,7 @@ from repro_torch.kernels.ref import NEG_POS
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import options as OPT
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.sharding import constrain, embed, take_last
@@ -282,7 +284,8 @@ def init_moe_block(cfg: ModelConfig, generator: torch.Generator,
     mla = MLA.init_mla(d, cfg.num_heads, cfg.mla, dt, generator, device)
     if not dense_ffn:
         return MoEBlock(_norm(cfg, device), mla, _norm(cfg, device),
-                        moe=MOE.init_moe(d, cfg.moe, dt, generator, device))
+                        moe=MOE.init_moe(d, cfg.moe, dt, generator, device,
+                                         OPT.router_width(cfg)))
     f = cfg.moe.dense_d_ff
     mlp = {k: L.dense_init(shape, dt, generator, device)
            for k, shape in (("w_up", (d, f)), ("w_down", (f, d)),
@@ -673,19 +676,27 @@ def moe_block(p: MoEBlock, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[Mapping[str, torch.Tensor]] = None,
               cache_idx: Optional[int] = None,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, layer: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux): MLA (its latent cache written in place), then the
-    dense MLP (aux 0) or the MoE FFN and its load-balance loss."""
+    dense MLP (aux 0) or the MoE FFN and its load-balance loss: with
+    dropless routing (``models/options.py``) the layer's held experts'
+    part, ``layer`` naming it in ``moe.EXPERT_ROWS``, else the capacity
+    path at ``capacity_factor``."""
+    inv_freq, scale = OPT.mla_rope(cfg, x.device)
     h, _ = MLA.mla_attention(p.mla, L.rmsnorm(p.ln1, x, cfg.norm_eps),
                              cfg.mla, positions=positions,
                              theta=cfg.rope_theta, cache=cache,
-                             cache_idx=cache_idx)
+                             cache_idx=cache_idx, inv_freq=inv_freq,
+                             scale=scale)
     # as dense_block's: a partial sum over "model" left to DTensor is
     # reduced onto the sequence (an uneven split of v3's 4,095 MTP rows)
     x = constrain(x + h, ("batch", None, None))
     h2 = L.rmsnorm(p.ln2, x, cfg.norm_eps)
-    if p.moe is not None:
+    routing = OPT.routing_of(cfg)
+    if p.moe is not None and routing.dropless:
+        y, aux = MOE.moe_ffn_dropless(p.moe, h2, cfg.moe, routing, layer)
+    elif p.moe is not None:
         y, aux = MOE.moe_ffn(p.moe, h2, cfg.moe,
                              capacity_factor=capacity_factor)
     else:
@@ -698,7 +709,7 @@ def _run_moe(params: MoeLM, cfg: ModelConfig, x, positions, cache,
              cache_idx, mode) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense blocks, then the MoE blocks, layer ``i`` on slice ``i``
     of the latent cache; the capacity factor is 2.0 below 4096 tokens a
-    call, else 1.25 (the reference's)."""
+    call, else 1.25 (the reference's; dropless routing has none)."""
     cap = 2.0 if x.shape[0] * x.shape[1] < 4096 else 1.25
     lat = None if cache is None else cache["layers"]
     aux = torch.zeros((), device=x.device)
@@ -706,7 +717,7 @@ def _run_moe(params: MoeLM, cfg: ModelConfig, x, positions, cache,
     for i, blk in enumerate([*params.dense_blocks, *params.moe_blocks]):
         x, a = block(blk, cfg, x, positions=positions,
                      cache=_layer(lat, i), cache_idx=cache_idx,
-                     capacity_factor=cap)
+                     capacity_factor=cap, layer=i)
         aux = aux + a
     return x, aux
 

@@ -9,8 +9,12 @@ form: ``wk_b`` folds into the query (``q_lat``, ``kv_lora_rank`` wide),
 which attends over the cached latent rows ``[ckv | krope]`` (576) with the
 latent ``ckv`` (512) as values, all heads over one latent row (n = 1, g =
 h): K2's MLA mode for a chunk (causal at ``q_offset = idx``), K1's for a
-single token; ``wv_b`` is applied after.  Both scale by
-1/sqrt(qk_head_dim).
+single token; ``wv_b`` is applied after.  Both scale by ``scale``
+(1/sqrt(qk_head_dim) unless given: YaRN multiplies it by mscale², and
+rotates the rope columns at its blended frequencies ``inv_freq``;
+``models/options.py``).  ``q_lora_rank`` 0 (the published ``null``) is a
+direct query projection ``wq (d, h, qk_head_dim)`` in place of ``wq_a``,
+``q_norm`` and ``wq_b``.
 
 The cache is one buffer ``latent (b, S, kv_lora_rank + qk_rope_head_dim)``
 per layer, so a key row is one contiguous read and the values are a view
@@ -42,10 +46,14 @@ def init_mla(d: int, n_heads: int, m: MLAConfig, dtype: torch.dtype,
     def norm(n):
         return torch.ones(n, dtype=torch.float32, device=device)
 
+    if m.q_lora_rank:
+        q = {"wq_a": dense((d, m.q_lora_rank)),
+             "q_norm": norm(m.q_lora_rank),
+             "wq_b": dense((m.q_lora_rank, n_heads, m.qk_head_dim))}
+    else:
+        q = {"wq": dense((d, n_heads, m.qk_head_dim))}
     return {
-        "wq_a": dense((d, m.q_lora_rank)),
-        "q_norm": norm(m.q_lora_rank),
-        "wq_b": dense((m.q_lora_rank, n_heads, m.qk_head_dim)),
+        **q,
         "wkv_a": dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
         "kv_norm": norm(m.kv_lora_rank),
         "wk_b": dense((m.kv_lora_rank, n_heads, m.qk_nope_head_dim)),
@@ -65,40 +73,49 @@ def _latent(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_q(p: Params, x: torch.Tensor, m: MLAConfig, positions,
-               theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+               theta: float, inv_freq=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> q_nope (b,s,h,e_n), q_rope (b,s,h,e_r)."""
-    ql = rmsnorm({"scale": p["q_norm"]}, _latent(x, p["wq_a"]))
-    q = constrain(torch.einsum("bsr,rhe->bshe", ql, p["wq_b"]),
-                  ("batch", None, "model", None))
+    if "wq" in p:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    else:
+        ql = rmsnorm({"scale": p["q_norm"]}, _latent(x, p["wq_a"]))
+        q = torch.einsum("bsr,rhe->bshe", ql, p["wq_b"])
+    q = constrain(q, ("batch", None, "model", None))
     q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, theta)
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, theta,
+                        inv_freq)
     return q_nope, q_rope
 
 
 def _project_kv_latent(p: Params, x: torch.Tensor, m: MLAConfig, positions,
-                       theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                       theta: float, inv_freq=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> ckv (b,s,r), k_rope (b,s,e_r): what gets cached."""
     kv = _latent(x, p["wkv_a"])
     ckv = rmsnorm({"scale": p["kv_norm"]}, kv[..., :m.kv_lora_rank])
-    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions, theta)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions, theta,
+                        inv_freq)
     return ckv, k_rope[..., 0, :]
 
 
 def mla_attention(p: Params, x: torch.Tensor, m: MLAConfig, *,
                   positions: torch.Tensor, theta: float,
                   cache: Optional[Mapping[str, torch.Tensor]] = None,
-                  cache_idx: Optional[int] = None
+                  cache_idx: Optional[int] = None,
+                  inv_freq: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor,
                              Optional[Mapping[str, torch.Tensor]]]:
     """x (b,s,d) -> (y (b,s,d), cache).  ``cache`` {"latent": (b,S,r+e_r)}
     is written in place at ``cache_idx`` (a host int) and returned."""
     dtype = x.dtype
     b, s, _ = x.shape
-    h = p["wq_b"].shape[1]
+    h = p["wo"].shape[0]
     r = m.kv_lora_rank
-    scale = m.qk_head_dim ** -0.5
-    q_nope, q_rope = _project_q(p, x, m, positions, theta)
-    ckv, k_rope = _project_kv_latent(p, x, m, positions, theta)
+    scale = m.qk_head_dim ** -0.5 if scale is None else scale
+    q_nope, q_rope = _project_q(p, x, m, positions, theta, inv_freq)
+    ckv, k_rope = _project_kv_latent(p, x, m, positions, theta, inv_freq)
 
     if cache is None:
         # naive (compute-optimal) form: MHA over per-head K/V

@@ -1684,3 +1684,50 @@ def test_adamw_update_on_the_card_is_one_kernel_call(cuda):
         assert torch.equal(_bits(p.detach()), _bits(q.detach())), k
         assert torch.equal(new.m[k], tstate.m[k]), k
         assert torch.equal(new.v[k], tstate.v[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_dropless_expert_layer_card_matches_cpu(cuda, dtype):
+    """DeepSeek-V2-Lite's expert layer at its widths (8 of 64 experts of
+    width 1408, top-6, 2 shared, gates not renormalised; a random router
+    gives the held experts uneven rows): bf16 runs the
+    grouped products (``torch._grouped_mm``) and f32 one product an
+    expert, each against the same layer in f32 on the CPU, forward and
+    every gradient.  bf16 at 2e-2 of each tensor's largest entry (the
+    operands and every product's output rounded to bf16), f32 at 2e-5."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.options import RoutingConfig
+    cfg = MoEConfig(num_experts=8, num_shared_experts=2, top_k=6, d_ff=1408,
+                    router_aux_loss=0.001)
+    routing = RoutingConfig(dropless=True, router_experts=64,
+                            renormalize=False, seq_aux=True)
+    g = torch.Generator().manual_seed(31)
+    d, ff = 2048, 1408
+    p32 = {"router": torch.randn(d, 64, generator=g) * d ** -0.5,
+           "w_gate": torch.randn(8, d, ff, generator=g) * d ** -0.5,
+           "w_up": torch.randn(8, d, ff, generator=g) * d ** -0.5,
+           "w_down": torch.randn(8, ff, d, generator=g) * ff ** -0.5,
+           "shared_w_gate": torch.randn(d, 2 * ff, generator=g) * d ** -0.5,
+           "shared_w_up": torch.randn(d, 2 * ff, generator=g) * d ** -0.5,
+           "shared_w_down": torch.randn(2 * ff, d, generator=g)
+           * (2 * ff) ** -0.5}
+    dt = DTYPES[dtype]
+    x = torch.randn(2, 512, d, generator=g).to(dt)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: (v.clone() if k == "router" else v.to(dt) if dev == cuda
+                 else v.to(dt).float()).to(dev).requires_grad_()
+             for k, v in p32.items()}
+        xi = (x if dev == cuda else x.float()).to(dev).requires_grad_()
+        y, aux = MOE.moe_ffn_dropless(p, xi, cfg, routing)
+        gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            32)).to(dev, y.dtype)
+        grads = torch.autograd.grad((y * gy).sum() + aux,
+                                    [xi, *p.values()])
+        outs.append([t.float().cpu() for t in (y, aux, *grads)])
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for got, want in zip(*outs):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < tol
